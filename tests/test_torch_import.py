@@ -1,0 +1,68 @@
+"""The port imports without JAX: its package never imports jax or
+tpu_locoman, and a batched MPC tick runs on the CPU in a process where
+importing jax fails."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "tpu_locoman_torch")
+
+_SCRIPT = r"""
+import sys
+sys.modules["jax"] = None  # any import of jax now raises
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.set_num_threads(2)
+import tpu_locoman_torch as T
+from tpu_locoman_torch import convert  # noqa: F401
+robot = T.Go2()
+robot.set_gait_sequence("trot", 0.8)
+mpc = T.MPC(robot, dynamics="whole_body_rnea", nodes=3,
+            config=T.SQPConfig(n_trials=2, corrector_iters=2,
+                               admm=T.ADMMConfig(iters=3)))
+carries = T.batched_init(mpc, 2)
+targets = torch.tensor([[0.2, 0, 0, 0, 0, 0], [0.0, 0, 0, 0, 0, 0.1]])
+carries, stats = T.batched_step(mpc)(carries, 0.0, targets)
+assert torch.isfinite(carries.x_init).all()
+assert stats["status"].shape == (2,)
+bad = [m for m, mod in sys.modules.items() if mod is not None and (
+    m == "jax" or m.startswith("jax.") or m == "tpu_locoman"
+    or m.startswith("tpu_locoman."))]
+assert not bad, bad
+print("OK", float(stats["max_violation"].max()))
+"""
+
+
+def test_port_runs_with_jax_blocked():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _SCRIPT, ROOT],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.startswith("OK")
+
+
+def test_no_jax_or_reference_imports_in_port_sources():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|tpu_locoman)(\.|\s|$)", re.M)
+    hits = []
+    for dirpath, dirs, files in os.walk(PKG):
+        if "_build" in dirs:
+            dirs.remove("_build")  # kernel build outputs, not sources
+        for fn in files:
+            if fn.endswith(".py"):
+                path = os.path.join(dirpath, fn)
+                with open(path) as f:
+                    if pat.search(f.read()):
+                        hits.append(path)
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        if pat.search(f.read()):
+            hits.append("chip_smoke.py")
+    assert not hits, hits

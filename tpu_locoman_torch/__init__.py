@@ -1,0 +1,14 @@
+"""tpu_locoman_torch: the PyTorch/CUDA port of tpu-locoman.
+
+A second package beside the JAX reference ``tpu_locoman``, with the same
+module names. It imports torch and never jax or tpu_locoman; the robot
+specs are read in place from ``tpu_locoman/robots/specs/*.json``. The two
+TPU kernels on the main path are hand-written CUDA for Hopper: K1
+(``solver/chol_base.py``) and K2 (``rnea_derivs.py``).
+"""
+
+from . import gait, lie, model, rbda  # noqa: F401
+from .mpc import MPC, MPCCarry, geometric_dts  # noqa: F401
+from .parallel import batched_init, batched_step  # noqa: F401
+from .robots import B2G, Go2, Robot  # noqa: F401
+from .solver import ADMMConfig, SQPConfig  # noqa: F401

@@ -1,0 +1,88 @@
+"""Robot definitions: Go2 and B2G (+Z1 arm), built from the JSON specs.
+
+PyTorch counterpart of ``tpu_locoman/robots/__init__.py``. The specs are
+read in place from ``tpu_locoman/robots/specs/*.json`` by file path, so the
+JAX package is never imported.
+"""
+
+import json
+import os
+
+import numpy as np
+
+from .gait import GaitSequence
+from .model import model_from_dict
+
+SPEC_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tpu_locoman", "robots", "specs")
+
+
+def load_spec(spec_name):
+    with open(os.path.join(SPEC_DIR, spec_name + ".json")) as f:
+        return model_from_dict(json.load(f))
+
+
+class Robot:
+    """Dims, reference pose, gait attachment and end-effector frames."""
+
+    FOOT_FRAMES = ["FR_foot", "FL_foot", "RR_foot", "RL_foot"]
+
+    def __init__(self, model, reference_pose, base_frame="base_link"):
+        self.model = model
+        self.base_frame = base_frame
+        if reference_pose and reference_pose in model.reference_configurations:
+            self.q0 = np.asarray(model.reference_configurations[reference_pose])
+        else:
+            self.q0 = np.concatenate([[0, 0, 0, 0, 0, 0, 1],
+                                      np.zeros(model.nj)])
+        self.nq = model.nq
+        self.nv = model.nv
+        self.nj = model.nj
+        self.nf = 12  # forces at the four feet
+        self.ext_force_frame = None
+        self.arm_ee_frame = None
+        self.gait_sequence = None
+
+    @property
+    def mass(self):
+        return self.model.total_mass
+
+    def set_gait_sequence(self, gait_type, gait_period):
+        self.gait_sequence = GaitSequence(gait_type, gait_period)
+        self.foot_frames = list(self.gait_sequence.feet)
+
+
+class Go2(Robot):
+    """12-DoF Unitree Go2."""
+
+    def __init__(self, reference_pose="standing"):
+        super().__init__(load_spec("go2"), reference_pose, base_frame="base")
+        self.joint_pos_min = np.tile([-1.0472, -1.5708, -2.7227], 4)
+        self.joint_pos_max = np.tile([1.0472, 3.4907, -0.83776], 4)
+        self.joint_vel_max = np.tile([30.1, 30.1, 15.70], 4)
+        self.joint_torque_max = np.tile([23.7, 23.7, 45.43], 4)
+
+
+class B2G(Robot):
+    """B2 + Z1 arm with the gripper joint locked. ``ignore_arm=True`` (the
+    whole arm locked) waits for a later slice."""
+
+    def __init__(self, reference_pose="standing_with_arm_up", ignore_arm=False):
+        if ignore_arm:
+            raise NotImplementedError(
+                "B2G(ignore_arm=True) is not ported yet (ROADMAP queue 1, "
+                "item 14)")
+        super().__init__(load_spec("b2g"), reference_pose)
+        self.ext_force_frame = "gripperStator"
+        self.arm_ee_frame = "gripperStator"
+        self.nf += 3
+        self.joint_pos_min = np.concatenate((
+            np.tile([-0.87, -0.94, -2.82], 4),
+            [-2.62, 0.0, -2.88, -1.52, -1.34, -2.79]))
+        self.joint_pos_max = np.concatenate((
+            np.tile([0.87, 4.69, -0.43], 4),
+            [2.62, 2.97, 0.0, 1.52, 1.34, 2.79]))
+        self.joint_vel_max = np.concatenate((
+            np.tile([23.0, 23.0, 14.0], 4), [3.14] * 6))
+        self.joint_torque_max = np.concatenate((
+            np.tile([200, 200, 320], 4), [30, 60, 30, 30, 30, 30]))
