@@ -1,7 +1,9 @@
 """The port imports without JAX: its package never imports jax or
 tpu_locoman, and a batched MPC tick runs on the CPU in a process where
-importing jax fails."""
+importing jax fails. Also: the port's entry points default to the card,
+and its copies of the robot specs equal the JAX package's files."""
 
+import json
 import os
 import re
 import subprocess
@@ -25,7 +27,7 @@ import tpu_locoman_torch as T
 from tpu_locoman_torch import convert  # noqa: F401
 robot = T.Go2()
 robot.set_gait_sequence("trot", 0.8)
-mpc = T.MPC(robot, dynamics="whole_body_rnea", nodes=3,
+mpc = T.MPC(robot, dynamics="whole_body_rnea", nodes=3, device="cpu",
             config=T.SQPConfig(n_trials=2, corrector_iters=2,
                                admm=T.ADMMConfig(iters=3)))
 carries = T.batched_init(mpc, 2)
@@ -66,3 +68,35 @@ def test_no_jax_or_reference_imports_in_port_sources():
         if pat.search(f.read()):
             hits.append("chip_smoke.py")
     assert not hits, hits
+
+
+@pytest.mark.parametrize("name", ["go2", "b2g"])
+def test_spec_copies_equal_jax_package_files(name):
+    """The port reads its own copy of each spec; it must not drift from the
+    JAX package's file."""
+    import tpu_locoman_torch as T
+    from tpu_locoman_torch import robots
+
+    assert robots.SPEC_DIR == os.path.join(PKG, "specs")
+    with open(os.path.join(PKG, "specs", name + ".json")) as f:
+        copy = json.load(f)
+    with open(os.path.join(ROOT, "tpu_locoman", "robots", "specs",
+                           name + ".json")) as f:
+        ref = json.load(f)
+    assert copy == ref
+    assert T.Go2().model.nq == 19 and T.B2G().model.nq == 25
+
+
+def test_mpc_defaults_to_cuda(monkeypatch):
+    """Without device=..., MPC runs on the card and, where there is none,
+    raises instead of falling back to the CPU."""
+    import tpu_locoman_torch as T
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    robot = T.Go2()
+    robot.set_gait_sequence("trot", 0.8)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        T.MPC(robot, nodes=3)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        T.geometric_dts(0.01, 0.08, 3)
+    assert T.MPC(robot, nodes=3, device="cpu").device.type == "cpu"

@@ -1,4 +1,4 @@
-"""The plain PyTorch versions of the port's two kernels against the Pallas
+"""The plain PyTorch versions of the port's three kernels against the Pallas
 TPU kernels they replace, run in interpret mode as the JAX package's own
 tests run them off-TPU (tests/test_pallas_rbda.py, tests/test_qp.py).
 
@@ -8,7 +8,7 @@ one against these plain versions there. Here: the wrappers' CPU dispatch.
 Tolerances: K2 atol 2e-4 * (max|ref| + 1) as test_pallas_rbda.py; K1 and
 the factorize+solve path 1e-4 * (max|ref| + 1) as test_qp.py (the plain
 version and the Pallas kernel share the algorithm, not the f32 summation
-order)."""
+order); K3 atol 1e-5 as test_qp.py's test_pallas_factorize_matches_xla."""
 
 import functools
 
@@ -25,9 +25,10 @@ import tpu_locoman as J  # noqa: E402
 from tpu_locoman.pallas_rbda import rnea_derivatives_pallas  # noqa: E402
 from tpu_locoman.solver import qp as jqp  # noqa: E402
 from tpu_locoman.solver.pallas_base import chol_inv_base_batched  # noqa: E402
+from tpu_locoman.solver.pallas_fac import factorize_pallas  # noqa: E402
 import tpu_locoman_torch as T  # noqa: E402
 from tpu_locoman_torch import rnea_derivs  # noqa: E402
-from tpu_locoman_torch.solver import chol_base  # noqa: E402
+from tpu_locoman_torch.solver import chol_base, fac_whole  # noqa: E402
 from tpu_locoman_torch.solver import qp as tqp  # noqa: E402
 
 
@@ -114,6 +115,58 @@ def test_factorize_cholinv_pb_matches_jax_interpret():
     np.testing.assert_allclose(out, ref, atol=1e-4 * (np.abs(ref).max() + 1))
 
 
+def test_k3_plain_matches_pallas_interpret():
+    """K3's plain version (``factorize_whole`` on CPU tensors) against
+    ``factorize_pallas`` in interpret mode at test_qp.py's shape: K=6,
+    s=37 (odd: uneven recursion splits), a batch of 2 looped on the JAX
+    side. Linv, W, V and solve_factorized. Measured gap: at most 2.4e-7
+    absolute; held at 1e-5 as test_qp.py."""
+    rng = np.random.default_rng(7)
+    Bs, K, s = 2, 6, 37
+    A = rng.normal(size=(Bs, K, s, s)).astype(np.float32)
+    H = np.einsum("bnij,bnkj->bnik", A, A) / s + 3.0 * np.eye(s, dtype=np.float32)
+    U = (0.1 * rng.normal(size=(Bs, K - 1, s, s))).astype(np.float32)
+    b = rng.normal(size=(Bs, K, s)).astype(np.float32)
+    before = fac_whole.launches
+    fac = fac_whole.factorize_whole(torch.tensor(H), torch.tensor(U))
+    assert fac_whole.launches == before  # CPU tensors: the plain version
+    x = tqp.solve_factorized(fac, torch.tensor(b)).numpy()
+    for i in range(Bs):
+        ref = factorize_pallas(jnp.asarray(H[i]), jnp.asarray(U[i]),
+                               interpret=True)
+        for name in ("Linv", "W", "V"):
+            np.testing.assert_allclose(getattr(fac, name)[i].numpy(),
+                                       np.asarray(getattr(ref, name)),
+                                       atol=1e-5, err_msg=f"{name} {i}")
+        np.testing.assert_allclose(
+            x[i], np.asarray(jqp.solve_factorized(ref, jnp.asarray(b[i]))),
+            atol=1e-5)
+    assert np.all(fac.W[:, 0].numpy() == 0) and np.all(fac.V[:, -1].numpy() == 0)
+
+
+def test_k3_plain_keeps_nan_for_non_spd():
+    """A non-SPD node block must reach the solver as NaN (the eq-projection
+    guard and the status codes depend on it), in its own scenario only."""
+    H = np.tile(np.eye(10, dtype=np.float32), (2, 4, 1, 1))
+    H[1, 2] *= -1.0
+    U = np.zeros((2, 3, 10, 10), np.float32)
+    fac = fac_whole.factorize_whole(torch.tensor(H), torch.tensor(U))
+    assert torch.isnan(fac.Linv[1, 2]).any()
+    assert torch.isfinite(fac.Linv[0]).all()
+
+
+def test_k3_wrapper_rejects_what_the_kernel_cannot_take():
+    """The checks the wrapper makes before a launch: float32, full-width U,
+    s <= MAX_S."""
+    z = torch.zeros
+    for H, U in ((z(1, 3, 8, 8), z(1, 2, 8, 4)),
+                 (z(1, 3, 8, 8, dtype=torch.float64), z(1, 2, 8, 8)),
+                 (z(1, 3, 120, 120), z(1, 2, 120, 120))):
+        with pytest.raises(ValueError):
+            fac_whole._check(H, U)
+    fac_whole._check(z(1, 3, 112, 112), z(1, 2, 112, 112))
+
+
 def test_build_key_is_stable():
     """The kernel build directory is keyed by the sources and flags alone
     (the build itself needs nvcc and runs on the GPU machine)."""
@@ -121,6 +174,10 @@ def test_build_key_is_stable():
 
     srcs = _build._sources()
     assert [s.rsplit("/", 1)[-1] for s in srcs] == ["chol_inv_base.cu",
+                                                    "fac_whole.cu",
                                                     "rnea_derivs.cu"]
+    assert set(_build._SIGNATURES) == {"chol_inv_base_launch",
+                                       "fac_whole_launch",
+                                       "rnea_derivs_launch"}
     assert _build._digest(srcs) == _build._digest(list(srcs))
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH

@@ -14,8 +14,9 @@ line search's discrete decisions must not flip).
 
 The B2G N=14 flagship is held against the JAX golden fixture
 (tests/data/torch_golden_b2g_n14.json, written by
-tools/make_torch_golden.py); chip_smoke.py replays the same fixture on the
-GPU."""
+tools/make_torch_golden.py), and the accurate single-robot path against
+tests/data/torch_golden_b2g_n14_accurate.json (``--accurate``);
+chip_smoke.py replays both fixtures on the GPU."""
 
 import os
 import sys
@@ -49,7 +50,7 @@ def _rollout_pair(name, N, ticks, targets):
     jm = J.MPC(jrob, dynamics="whole_body_rnea", nodes=N, flip_reset=True,
                warm_shift=True, config=_hot(J, "cholinv"))
     tm = T.MPC(trob, dynamics="whole_body_rnea", nodes=N, flip_reset=True,
-               warm_shift=True, config=_hot(T, "cholinv_pb"))
+               warm_shift=True, config=_hot(T, "cholinv_pb"), device="cpu")
     B = targets.shape[0]
     jc = jpar.batched_init(jm, B)
     tc = convert.carry_from_numpy(jax.device_get(jc), "cpu")
@@ -109,6 +110,70 @@ def test_golden_fixture_setup():
         assert np.all(np.isfinite(tick["x"])) and tick["x"].shape == (2, 49)
 
 
+def test_golden_accurate_fixture_setup():
+    """The accurate-mode fixture (tools/make_torch_golden.py --accurate):
+    B2G N=14, SQPConfig.accurate() with JAX "cholinv", batch 1, 5 ticks,
+    every tick at the accurate preset's gate."""
+    gold = convert.load_golden(os.path.join(
+        ROOT, "tests", "data", "torch_golden_b2g_n14_accurate.json"))
+    s = gold["setup"]
+    assert (s["robot"], s["nodes"], s["eq_projection"], s["corrector"],
+            s["ls_trials"], s["factorizer"]) == ("B2G", 14, 4, 0, 8, "cholinv")
+    assert gold["init"]["solver_state"]["Z"].shape == (1, 15, 105)
+    assert len(gold["ticks"]) == s["ticks"] == 5
+    for tick in gold["ticks"]:
+        assert tick["x"].shape == (1, 49) and np.all(np.isfinite(tick["x"]))
+        assert np.all(tick["max_violation"] <= 1e-3)
+
+
+@pytest.mark.slow
+def test_golden_accurate_replay_plain_path():
+    """The accurate single-robot path (B2G N=14, batch 1, 5 ticks) with the
+    port's factorizer "pallas" (K3's plain version here) against the
+    accurate JAX golden fixture, at the tolerances chip_smoke.py states
+    and applies on the GPU (replay_golden). Slow: five B2G N=14 ticks with
+    four equality projections each, ~10 s on the CPU."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    gx, gv, _, ticks, batch = chip_smoke.replay_golden(
+        torch.device("cpu"), "pallas", chip_smoke.GOLDEN_ACC)
+    assert (ticks, batch) == (5, 1)
+    assert gx <= chip_smoke.ACC_X_TOL and gv <= chip_smoke.ACC_VIOL_TOL
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("factorizer", ["sequential", "babe"])
+def test_golden_accurate_tolerances_hold_for_jax_itself(factorizer):
+    """The accurate fixture's own f32 spread: JAX with another factorizer
+    (same math, other summation order) against the fixture (JAX
+    "cholinv"). Measured on the CPU: x within 1.7e-3 ("sequential") and
+    7.8e-4 ("babe"), max_violation within 7.6e-5 and 1.1e-4 per tick;
+    chip_smoke.py's accurate tolerances must hold for it too. Slow: a B2G
+    N=14 accurate jit, ~1.5 min each."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    gold = convert.load_golden(chip_smoke.GOLDEN_ACC)
+    s = gold["setup"]
+    robot = J.B2G()
+    robot.set_gait_sequence(s["gait"], s["gait_period"])
+    mpc = J.MPC(robot, dynamics=s["dynamics"], nodes=s["nodes"],
+                config=J.SQPConfig.accurate()._replace(
+                    admm=J.ADMMConfig(iters=s["admm_iters"],
+                                      factorizer=factorizer)))
+    carry = jpar.batched_init(mpc, 1)
+    step = jpar.batched_step(mpc, donate=False)
+    for k, ref in enumerate(gold["ticks"]):
+        carry, st = step(carry, jnp.float32(k * s["dt_min"]),
+                         jnp.asarray(gold["targets"]))
+        np.testing.assert_allclose(np.asarray(carry.x_init), ref["x"],
+                                   atol=chip_smoke.ACC_X_TOL)
+        np.testing.assert_allclose(np.asarray(st["max_violation"]),
+                                   ref["max_violation"], rtol=0,
+                                   atol=chip_smoke.ACC_VIOL_TOL)
+
+
 @pytest.mark.slow
 def test_golden_fixture_reproduces_from_jax():
     """Regenerate the fixture's first two ticks with JAX on the CPU (a
@@ -135,7 +200,7 @@ def test_batched_equals_single():
     scenario ticked alone (the port's counterpart of test_parallel)."""
     trob = T.Go2()
     trob.set_gait_sequence("trot", 0.8)
-    tm = T.MPC(trob, nodes=4, config=_hot(T, "cholinv_pb"))
+    tm = T.MPC(trob, nodes=4, config=_hot(T, "cholinv_pb"), device="cpu")
     targets = torch.tensor([[0.2, 0, 0, 0, 0, 0], [0.0, 0.1, 0, 0, 0, 0]])
     cb, sb = tm.step(T.batched_init(tm, 2), 0.05, targets)
     for i in range(2):

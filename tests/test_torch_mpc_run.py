@@ -32,7 +32,7 @@ def _go2_pair(N=4):
     jm = J.MPC(jrob, dynamics="whole_body_rnea", nodes=N,
                config=_hot(J, "cholinv"))
     tm = T.MPC(trob, dynamics="whole_body_rnea", nodes=N,
-               config=_hot(T, "cholinv_pb"))
+               config=_hot(T, "cholinv_pb"), device="cpu")
     return jm, tm
 
 

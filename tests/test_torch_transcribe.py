@@ -35,7 +35,7 @@ def _pair(name, N, t=0.13, seed=3):
     jrob.set_gait_sequence("trot", 0.8)
     trob.set_gait_sequence("trot", 0.8)
     jm = J.MPC(jrob, dynamics="whole_body_rnea", nodes=N)
-    tm = T.MPC(trob, dynamics="whole_body_rnea", nodes=N)
+    tm = T.MPC(trob, dynamics="whole_body_rnea", nodes=N, device="cpu")
     carry = jm.init_carry()
     vel = jnp.array([0.2, 0.0, 0.0, 0.0, 0.0, 0.1])
     shared = jm.make_shared(carry.x_init, vel, tau_prev=carry.tau_prev)

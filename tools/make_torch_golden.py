@@ -1,20 +1,27 @@
-"""Write the JAX golden fixture that the PyTorch port is replayed against.
+"""Write the JAX golden fixtures that the PyTorch port is replayed against.
 
-Runs the JAX flagship tick on the CPU — B2G + Z1 arm, whole_body_rnea,
-trot 0.8 s, N=14, the hot config (1 SQP iteration, 10 ADMM sweeps,
-corrector 5, 2 line-search trials, flip reset, warm shift) with factorizer
-"cholinv" — for a batch of 2 scenarios (target vx 0.2 and 0.1) over 5
-ticks, and writes tests/data/torch_golden_b2g_n14.json: the setup, the
-initial carry, and per tick x, max_violation, alpha and status.
+Runs the JAX tick on the CPU — B2G + Z1 arm, whole_body_rnea, trot 0.8 s,
+N=14, flip reset, warm shift, factorizer "cholinv" — over 5 ticks, and
+writes the setup, the initial carry, and per tick x, max_violation, alpha
+and status:
+
+- default: the hot config (1 SQP iteration, 10 ADMM sweeps, corrector 5,
+  2 line-search trials), batch 2 (target vx 0.2 and 0.1), to
+  tests/data/torch_golden_b2g_n14.json;
+- ``--accurate``: ``SQPConfig.accurate()`` (1 SQP iteration, 10 ADMM
+  sweeps, 4 equality-projection passes, no corrector, 8 line-search
+  trials), batch 1 (target vx 0.2), to
+  tests/data/torch_golden_b2g_n14_accurate.json.
 
 The machine with the GPU has no JAX, so this fixture is how a run there is
 held against the reference (chip_smoke.py replays it; so does a CPU test,
 tests/test_torch_mpc.py). Arrays are stored as base64 of their
 float32/int32 bytes; tpu_locoman_torch.convert.load_golden reads them.
 
-    JAX_PLATFORMS=cpu python tools/make_torch_golden.py
+    JAX_PLATFORMS=cpu python tools/make_torch_golden.py [--accurate]
 """
 
+import argparse
 import base64
 import json
 import os
@@ -23,7 +30,7 @@ import sys
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-OUT = os.path.join(ROOT, "tests", "data", "torch_golden_b2g_n14.json")
+DATA = os.path.join(ROOT, "tests", "data")
 
 SETUP = {
     "robot": "B2G", "dynamics": "whole_body_rnea", "gait": "trot",
@@ -32,6 +39,9 @@ SETUP = {
     "factorizer": "cholinv", "targets_vx": [0.2, 0.1], "ticks": 5,
     "dt_min": 0.01,
 }
+# SQPConfig.accurate() with the factorizer named, for one robot
+ACCURATE = dict(SETUP, corrector=0, ls_trials=8, eq_projection=4,
+                targets_vx=[0.2])
 
 
 def pack(x):
@@ -41,6 +51,12 @@ def pack(x):
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--accurate", action="store_true",
+                    help="write the accurate-mode fixture (batch 1)")
+    accurate = ap.parse_args().accurate
+    out_path = os.path.join(DATA, "torch_golden_b2g_n14_accurate.json"
+                            if accurate else "torch_golden_b2g_n14.json")
     sys.path.insert(0, ROOT)
     import jax
     import jax.numpy as jnp
@@ -49,7 +65,7 @@ def main():
     from tpu_locoman import B2G, MPC, ADMMConfig, SQPConfig
     from tpu_locoman.parallel import batched_init, batched_step
 
-    s = SETUP
+    s = ACCURATE if accurate else SETUP
     robot = B2G()
     robot.set_gait_sequence(s["gait"], s["gait_period"])
     mpc = MPC(robot, dynamics=s["dynamics"], nodes=s["nodes"],
@@ -57,6 +73,7 @@ def main():
               config=SQPConfig(sqp_iters=s["sqp_iters"],
                                n_trials=s["ls_trials"],
                                corrector_iters=s["corrector"],
+                               eq_projection=s.get("eq_projection", 0),
                                admm=ADMMConfig(iters=s["admm_iters"],
                                                factorizer=s["factorizer"])))
     batch = len(s["targets_vx"])
@@ -89,10 +106,10 @@ def main():
         },
         "ticks": ticks,
     }
-    os.makedirs(os.path.dirname(OUT), exist_ok=True)
-    with open(OUT, "w") as f:
+    os.makedirs(DATA, exist_ok=True)
+    with open(out_path, "w") as f:
         json.dump(out, f)
-    print("wrote", OUT, os.path.getsize(OUT), "bytes")
+    print("wrote", out_path, os.path.getsize(out_path), "bytes")
 
 
 if __name__ == "__main__":

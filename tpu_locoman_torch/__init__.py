@@ -1,10 +1,11 @@
 """tpu_locoman_torch: the PyTorch/CUDA port of tpu-locoman.
 
 A second package beside the JAX reference ``tpu_locoman``, with the same
-module names. It imports torch and never jax or tpu_locoman; the robot
-specs are read in place from ``tpu_locoman/robots/specs/*.json``. The two
-TPU kernels on the main path are hand-written CUDA for Hopper: K1
-(``solver/chol_base.py``) and K2 (``rnea_derivs.py``).
+module names. It imports torch and never jax or tpu_locoman, and keeps its
+own copies of the robot specs in ``specs/``. The three TPU kernels are
+hand-written CUDA for Hopper: K1 (``solver/chol_base.py``), K2
+(``rnea_derivs.py``) and K3 (``solver/fac_whole.py``). Entry points run on
+the card unless the caller passes ``device="cpu"``.
 """
 
 from . import gait, lie, model, rbda  # noqa: F401

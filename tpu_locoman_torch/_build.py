@@ -35,6 +35,7 @@ _C_INT = ctypes.c_int
 _SIGNATURES = {
     "chol_inv_base_launch": [_C_VOID, _C_VOID, _C_INT, _C_INT, _C_VOID],
     "rnea_derivs_launch": [_C_VOID] * 19 + [_C_INT] * 4 + [_C_VOID],
+    "fac_whole_launch": [_C_VOID] * 5 + [_C_INT] * 3 + [_C_VOID],
 }
 
 

@@ -18,10 +18,21 @@ from .ocp import Transcription
 from .solver import SQPConfig, SQPSolver, SolverState
 
 
-def geometric_dts(dt_min, dt_max, nodes, device="cpu"):
+def _device(device):
+    """torch.device for an entry point; CUDA unless the caller asks for the
+    CPU, and never a silent fall back to it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError('CUDA is not available: pass device="cpu" to run '
+                           'on the CPU')
+    return dev
+
+
+def geometric_dts(dt_min, dt_max, nodes, device="cuda"):
     """dt_i = dt_min * gamma^i, float32 (nodes,)."""
     if nodes < 2:
         raise ValueError("geometric_dts needs nodes >= 2")
+    device = _device(device)
     gamma = (dt_max / dt_min) ** (1.0 / (nodes - 1))
     g = torch.tensor(gamma, dtype=torch.float32, device=device)
     return dt_min * g ** torch.arange(nodes, dtype=torch.float32,
@@ -45,8 +56,9 @@ class MPC:
     def __init__(self, robot, dynamics="whole_body_rnea", nodes=14,
                  dt_min=0.01, dt_max=0.08, swing_height=0.07,
                  swing_vel_limits=(0.1, -0.2), config=SQPConfig(),
-                 flip_reset=True, warm_shift=True, device="cpu",
+                 flip_reset=True, warm_shift=True, device="cuda",
                  **form_kwargs):
+        self.device = _device(device)
         if robot.gait_sequence is None:
             raise ValueError("call robot.set_gait_sequence first")
         if isinstance(config, str):
@@ -60,7 +72,6 @@ class MPC:
             raise NotImplementedError(
                 f"flip_reset={flip_reset!r} is not ported yet (ROADMAP queue "
                 f"1, item 13)")
-        self.device = torch.device(device)
         self.robot = robot
         self.form = make_formulation(dynamics, robot, **form_kwargs)
         self.trans = Transcription(self.form, nodes)

@@ -1,8 +1,8 @@
 """Robot definitions: Go2 and B2G (+Z1 arm), built from the JSON specs.
 
-PyTorch counterpart of ``tpu_locoman/robots/__init__.py``. The specs are
-read in place from ``tpu_locoman/robots/specs/*.json`` by file path, so the
-JAX package is never imported.
+PyTorch counterpart of ``tpu_locoman/robots/__init__.py``. The port keeps
+its own byte-for-byte copies of the JAX package's ``go2.json`` and
+``b2g.json`` in ``tpu_locoman_torch/specs/`` (a test holds them equal).
 """
 
 import json
@@ -13,8 +13,7 @@ import numpy as np
 from .gait import GaitSequence
 from .model import model_from_dict
 
-SPEC_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "tpu_locoman", "robots", "specs")
+SPEC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "specs")
 
 
 def load_spec(spec_name):

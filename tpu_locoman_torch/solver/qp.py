@@ -1,17 +1,19 @@
 """Stagewise QP: OSQP-semantics ADMM over the block-tridiagonal KKT.
 
-PyTorch counterpart of the main path of ``tpu_locoman/solver/qp.py``:
-``assemble_blocks`` (propagation-pattern C), the recursive ``chol_inv``
-whose leaves are kernel K1, ``factorize`` with skinny couplings,
-``solve_factorized``, the box-row matvecs and ``prepare`` / ``run_iters``
-/ ``admm_solve``. Every tensor carries the scenario axis first:
-G (Bs, N, m, ndx), P_diag (Bs, N+1, s), ...
+PyTorch counterpart of ``tpu_locoman/solver/qp.py`` on the
+``scaling_iters=0`` path: ``assemble_blocks`` (propagation-pattern C), the
+recursive ``chol_inv`` whose leaves are kernel K1, ``factorize`` with skinny
+couplings, the whole-horizon factorization of kernel K3
+(``factorizer="pallas"``, ``fac_whole.py``), the two-chain BABE factorizer,
+``solve_factorized`` / ``solve_babe``, the box-row matvecs, ``prepare`` /
+``run_iters`` / ``admm_solve`` with the equality-polish phase, and the
+accurate-mode closers ``kkt_polish`` and ``eq_project``. Every tensor
+carries the scenario axis first: G (Bs, N, m, ndx), P_diag (Bs, N+1, s), ...
 
 The recursion's panel products, the Schur updates and the ADMM sweeps are
 plain batched products (left to XLA in the JAX package, to cuBLAS here).
-Not ported yet (ROADMAP queue 1, items 11-12): Ruiz scaling, the polish
-phase, bf16 storage, and the sequential / cyclic / babe / pallas
-factorizers.
+Not ported yet (ROADMAP queue 1, item 12): Ruiz scaling, bf16 storage, and
+the sequential and cyclic factorizers.
 """
 
 from typing import NamedTuple
@@ -19,6 +21,11 @@ from typing import NamedTuple
 import torch
 
 from .chol_base import chol_base_unrolled, chol_inv_base, tri_inv_doubling
+from .fac_whole import factorize_whole
+
+#: the factorizers the port has; "auto" is "cholinv_pb" on CUDA tensors and
+#: "cholinv" on CPU tensors
+FACTORIZERS = ("auto", "cholinv", "cholinv_pb", "pallas", "babe", "babe_pb")
 
 
 class ADMMConfig(NamedTuple):
@@ -29,13 +36,20 @@ class ADMMConfig(NamedTuple):
     scaling_iters: int = 0
     eq_boost: float = 1e3
     # "cholinv_pb" computes the recursion leaves with kernel K1 on CUDA
-    # tensors; "cholinv" computes them in plain torch on any device. Every
-    # product is full float32 (TF32 is off for the solve).
+    # tensors; "cholinv" computes them in plain torch on any device;
+    # "pallas" runs each scenario's whole factorization as one launch of
+    # kernel K3; "babe" / "babe_pb" eliminate the horizon from both ends
+    # (leaves as "cholinv" / "cholinv_pb"). Every product is full float32
+    # (TF32 is off for the solve).
     factorizer: str = "cholinv_pb"
     chol_base: int = 16
     matvec_dtype: str = "float32"
     factor_dtype: str = "float32"
+    # equality polish (accurate mode): after the main sweeps, refactorize
+    # with the equality rho boosted by polish_boost and run polish_iters
+    # more sweeps
     polish_iters: int = 0
+    polish_boost: float = 100.0
 
 
 class BlockTridiagFactor(NamedTuple):
@@ -59,17 +73,13 @@ def _check_config(cfg):
         raise NotImplementedError(
             "ADMMConfig.scaling_iters > 0 is not ported yet (ROADMAP queue 1, "
             "item 12)")
-    if cfg.polish_iters > 0:
-        raise NotImplementedError(
-            "ADMMConfig.polish_iters > 0 is not ported yet (ROADMAP queue 1, "
-            "item 11)")
     if cfg.matvec_dtype != "float32" or cfg.factor_dtype != "float32":
         raise NotImplementedError(
             "only float32 matvec/factor storage is ported")
-    if cfg.factorizer not in ("cholinv", "cholinv_pb"):
+    if cfg.factorizer not in FACTORIZERS:
         raise NotImplementedError(
             f"factorizer {cfg.factorizer!r} is not ported yet (ROADMAP queue "
-            f"1, items 11-12; kernel K3 in queue 2)")
+            f"1, item 12)")
 
 
 def assemble_blocks(G, B, C, P_diag, rho_vec, sigma, box_idx=None,
@@ -173,6 +183,98 @@ def solve_factorized(fac, b):
     return torch.stack(X, dim=1)
 
 
+class BabeFactor(NamedTuple):
+    """Two-chain "burn-at-both-ends" factor (see the JAX docstring): the
+    left chain (nodes 0..p-1) and the mirrored right chain (nodes S-1..p+1,
+    couplings U^T) eliminated toward the separator node p = S // 2, the
+    shorter chain front-padded with identity nodes.
+    Linv, W, V (Bs, d, 2, s, s); Pfin (Bs, 2, s, s); Linv_sep (Bs, s, s)."""
+
+    Linv: torch.Tensor
+    W: torch.Tensor
+    V: torch.Tensor
+    Pfin: torch.Tensor
+    Linv_sep: torch.Tensor
+
+
+def _front_pad(c, d, fill):
+    """Front-pad the node axis (dim 1) of c to length d with copies of
+    fill (one node's block)."""
+    n = c.shape[1]
+    if n == d:
+        return c
+    return torch.cat([fill.expand((c.shape[0], d - n) + fill.shape), c], 1)
+
+
+def factorize_babe(H, U, chol_impl="cholinv", base=16):
+    """BABE factorization of the SPD block tridiagonal. H (Bs, S, s, s); U
+    (Bs, S-1, s, k), padded dense here (the mirrored chain needs U^T)."""
+    Bs, S_, s = H.shape[0], H.shape[1], H.shape[-1]
+    k = U.shape[-1]
+    base_impl = "kernel" if chol_impl == "cholinv_pb" else "torch"
+    p = S_ // 2
+    d = max(p, S_ - 1 - p)
+    if k < s:
+        U = torch.cat([U, U.new_zeros(U.shape[:-1] + (s - k,))], dim=-1)
+    eye = torch.eye(s, dtype=H.dtype, device=H.device)
+    zero = torch.zeros_like(eye)
+    # chain step t: node t on the left, node S-1-t on the right, the latter
+    # coupled onward through U_{S-2-t}^T; (Bs, d, 2, s, s)
+    Hs = torch.stack([_front_pad(H[:, :p], d, eye),
+                      _front_pad(H[:, p + 1:].flip(1), d, eye)], dim=2)
+    Cs = torch.stack([_front_pad(U[:, :p], d, zero),
+                      _front_pad(U[:, p:].transpose(-1, -2).flip(1), d, zero)],
+                     dim=2)
+    P_prev = H.new_zeros(Bs, 2, s, s)
+    Linvs, Ps = [], []
+    for t in range(d):
+        Ssch = Hs[:, t] - P_prev.transpose(-1, -2) @ P_prev
+        Ssch = Ssch + 1e-6 * eye
+        _, Linv_t = chol_inv(Ssch, base, base_impl)
+        P_prev = Linv_t @ Cs[:, t]
+        Linvs.append(Linv_t)
+        Ps.append(P_prev)
+    Pfin = P_prev
+    Ssep = (H[:, p] - Pfin[:, 0].transpose(-1, -2) @ Pfin[:, 0]
+            - Pfin[:, 1].transpose(-1, -2) @ Pfin[:, 1] + 1e-6 * eye)
+    _, Linv_sep = chol_inv(Ssep, base, base_impl)
+    Linv = torch.stack(Linvs, dim=1)
+    Pout = torch.stack(Ps, dim=1)
+    P_prev_seq = torch.cat([Pout.new_zeros(Bs, 1, 2, s, s), Pout[:, :-1]], 1)
+    W = Linv @ P_prev_seq.transpose(-1, -2)
+    V = Linv.transpose(-1, -2) @ Pout
+    return BabeFactor(Linv=Linv, W=W, V=V, Pfin=Pfin, Linv_sep=Linv_sep)
+
+
+def solve_babe(fac, b):
+    """Solve M x = b, b (Bs, S, s), with the BABE factor."""
+    Bs, S_, s = b.shape
+    d = fac.Linv.shape[1]
+    p = S_ // 2
+    nl, nr = p, S_ - 1 - p
+    zero = b.new_zeros(s)
+    bs = torch.stack([_front_pad(b[:, :p], d, zero),
+                      _front_pad(b[:, p + 1:].flip(1), d, zero)], dim=2)
+    Pb = _bmv(fac.Linv, bs)
+    y = b.new_zeros(Bs, 2, s)
+    Y = []
+    for t in range(d):
+        y = Pb[:, t] - _bmv(fac.W[:, t], y)
+        Y.append(y)
+    PfT = fac.Pfin.transpose(-1, -2)
+    b_sep = b[:, p] - _bmv(PfT[:, 0], y[:, 0]) - _bmv(PfT[:, 1], y[:, 1])
+    x_sep = _bmv(fac.Linv_sep.transpose(-1, -2), _bmv(fac.Linv_sep, b_sep))
+    T = _bmv(fac.Linv.transpose(-1, -2), torch.stack(Y, dim=1))
+    x = torch.stack([x_sep, x_sep], dim=1)
+    X = [None] * d
+    for t in range(d - 1, -1, -1):
+        x = T[:, t] - _bmv(fac.V[:, t], x)
+        X[t] = x
+    X = torch.stack(X, dim=1)
+    return torch.cat([X[:, d - nl:, 0], x_sep[:, None],
+                      X[:, d - nr:, 1].flip(1)], dim=1)
+
+
 def _A_matvec(A, D, X, box_idx=None):
     """w_i = A_i s_i + D_i s_{i+1} (+ box selector rows); X (Bs, N+1, s)."""
     out = _bmv(A, X[:, :-1]).clone()
@@ -199,6 +301,141 @@ def _rho_vec(l, u, cfg):
                        torch.full_like(l, cfg.rho))
 
 
+def _factorize_by_name(H, U, factorizer="auto", base=16):
+    """Factorizer dispatch shared by prepare and eq_project. "pallas" takes
+    the full-width coupling U (Bs, K-1, s, s)."""
+    if factorizer == "auto":
+        factorizer = "cholinv_pb" if H.is_cuda else "cholinv"
+    if factorizer == "pallas":
+        return factorize_whole(H, U)
+    if factorizer in ("babe", "babe_pb"):
+        return factorize_babe(
+            H, U, chol_impl="cholinv_pb" if factorizer == "babe_pb"
+            else "cholinv", base=base)
+    if factorizer in ("cholinv", "cholinv_pb"):
+        return factorize(H, U, chol_impl=factorizer, base=base)
+    raise NotImplementedError(
+        f"factorizer {factorizer!r} is not ported yet (ROADMAP queue 1, "
+        f"item 12)")
+
+
+def _solver_for(fac):
+    return solve_babe if isinstance(fac, BabeFactor) else solve_factorized
+
+
+def _median(x):
+    """Median over the last two axes per scenario, averaging the two middle
+    values for an even count as jnp.median does (torch.median returns the
+    lower one)."""
+    v = x.flatten(-2).sort(dim=-1).values
+    n = v.shape[-1]
+    return v[..., (n - 1) // 2] * 0.5 + v[..., n // 2] * 0.5
+
+
+def _masked_rows(G, B, C, W, s):
+    """The row blocks of node i's constraints on s_i (A) and on s_{i+1}
+    (D), (Bs, N, m, s), with the rows where W = 0 zeroed."""
+    Bs, N, m, ndx = G.shape
+    A = torch.cat([G, B], dim=-1) * W[..., None]
+    D = torch.cat([C, C.new_zeros(Bs, N, m, s - ndx)], dim=-1) * W[..., None]
+    return A, D
+
+
+def _schur(A, D, Pinv, W, delta):
+    """The Jacobi-equilibrated constraint-space Schur complement
+    S = A Pinv A^T + delta I of kkt_polish and eq_project: (A Pinv, D Pinv),
+    its node blocks S_diag (Bs, N, m, m), its couplings S_off (Bs, N-1, m,
+    m) and the scaling dscale (Bs, N, m)."""
+    APi = A * Pinv[:, :-1, None, :]
+    DPi = D * Pinv[:, 1:, None, :]
+    S_diag = (torch.einsum("bnms,bnks->bnmk", APi, A)
+              + torch.einsum("bnms,bnks->bnmk", DPi, D))
+    # masked rows become the trivial equation lambda = 0
+    S_diag = S_diag + torch.diag_embed(delta + (1.0 - W))
+    S_off = torch.einsum("bnms,bnks->bnmk", DPi[:, :-1], A[:, 1:])
+    # symmetric Jacobi equilibration (diag -> 1) for the f32 Cholesky
+    dscale = 1.0 / torch.sqrt(torch.clamp(
+        torch.diagonal(S_diag, dim1=-2, dim2=-1), min=1e-12))
+    S_diag = S_diag * dscale[..., :, None] * dscale[..., None, :]
+    S_off = S_off * dscale[:, :-1, :, None] * dscale[:, 1:, None, :]
+    return APi, DPi, S_diag, S_off, dscale
+
+
+def _At_lam(A, D, lam):
+    """A^T lam on node i plus D^T lam on node i+1, (Bs, N+1, s)."""
+    Bs, N, _, s = A.shape
+    out = lam.new_zeros(Bs, N + 1, s)
+    out[:, :-1] += torch.einsum("bnms,bnm->bns", A, lam)
+    out[:, 1:] += torch.einsum("bnms,bnm->bns", D, lam)
+    return out
+
+
+def kkt_polish(G, B, C, P_diag, q, l, u, z, box_idx=None, sigma=1e-6,
+               delta=1e-7, act_tol=1e-5):
+    """OSQP-style polish: the exact equality-KKT solve on the active set
+    (port of ``kkt_polish``); returns the polished step d (Bs, N+1, s).
+
+    The JAX package factorizes the constraint-space Schur complement with
+    its "blocked" Cholesky (XLA's loop Cholesky by panels, ROADMAP item 12).
+    The port takes its "cholinv" factorization on CPU tensors and
+    "cholinv_pb" (K1 leaves) on CUDA tensors: the same factor, with the f32
+    sums in another order."""
+    m = G.shape[2]
+    ld, ud, zd = l[..., :m], u[..., :m], z[..., :m]
+    eq = (ud - ld) < 1e-7
+    act_l = (zd - ld) < act_tol
+    act_u = (ud - zd) < act_tol
+    W = (eq | act_l | act_u).to(G.dtype)
+    r = torch.where(eq | act_l, ld, ud)
+    Pinv = 1.0 / (P_diag + sigma)
+    A, D = _masked_rows(G, B, C, W, P_diag.shape[-1])
+    APi, DPi, S_diag, S_off, dscale = _schur(A, D, Pinv, W, delta)
+    # S lam = -(A Pinv q + r)  (KKT: P d + q + A^T lam = 0, A d = r)
+    rhs = -(torch.einsum("bnms,bns->bnm", APi, q[:, :-1])
+            + torch.einsum("bnms,bns->bnm", DPi, q[:, 1:]) + W * r)
+    fac = factorize(S_diag, S_off,
+                    chol_impl="cholinv_pb" if S_diag.is_cuda else "cholinv")
+    lam = solve_factorized(fac, rhs * dscale) * dscale
+    return -Pinv * (q + _At_lam(A, D, lam))
+
+
+def eq_project(G, B, C, P_diag, resid, W, sigma=1e-6, delta=1e-7, refine=2,
+               factorizer="auto", base=16):
+    """Minimum-norm correction zeroing the masked (equality) rows, the
+    accurate-mode closer (port of ``eq_project``; see its docstring for the
+    conditioning measures): the metric inverse clamped to a 1e4 spread
+    around its median, the masked rows normalized, one constraint-space
+    block-tridiagonal factorization (K3 at (N, m) under "pallas") and two
+    rounds of iterative refinement reusing it.
+
+    W (Bs, N, m) 0/1 mask of the rows to enforce; resid (Bs, N, m) their
+    desired values. Returns delta (Bs, N+1, s)."""
+    Pinv = 1.0 / (P_diag + sigma)
+    med = _median(Pinv)[:, None, None]
+    Pinv = torch.clamp(Pinv, min=med * 1e-2, max=med * 1e2)
+    A, D = _masked_rows(G, B, C, W, P_diag.shape[-1])
+    rn = torch.clamp(torch.maximum(A.abs().amax(-1), D.abs().amax(-1)),
+                     min=1e-8)
+    A = A / rn[..., None]
+    D = D / rn[..., None]
+    _, _, S_diag, S_off, dscale = _schur(A, D, Pinv, W, delta)
+    rhs = (W * resid) / rn * dscale
+
+    def S_matvec(lam):
+        out = _bmv(S_diag, lam)
+        out[:, :-1] += _bmv(S_off, lam[:, 1:])
+        out[:, 1:] += _bmv(S_off.transpose(-1, -2), lam[:, :-1])
+        return out
+
+    fac = _factorize_by_name(S_diag, S_off, factorizer, base=base)
+    solve = _solver_for(fac)
+    lam = solve(fac, rhs)
+    for _ in range(refine):
+        lam = lam + solve(fac, rhs - S_matvec(lam))
+    # A Pinv A^T lam = r  =>  delta = Pinv A^T lam satisfies A delta = r
+    return Pinv * _At_lam(A, D, lam * dscale)
+
+
 def prepare(G, B, C, P_diag, l, u, cfg, box_idx=None, rho_vec=None,
             c_eye_rows=None):
     """Assemble and factorize M."""
@@ -207,17 +444,23 @@ def prepare(G, B, C, P_diag, l, u, cfg, box_idx=None, rho_vec=None,
         rho_vec = _rho_vec(l, u, cfg)
     H, U, A, D = assemble_blocks(G, B, C, P_diag, rho_vec, cfg.sigma,
                                  box_idx=box_idx, c_eye_rows=c_eye_rows)
-    fac = factorize(H, U, chol_impl=cfg.factorizer, base=cfg.chol_base)
+    s = H.shape[-1]
+    if cfg.factorizer == "pallas" and U.shape[-1] < s:
+        # K3 takes the full-width coupling block
+        U = torch.cat([U, U.new_zeros(U.shape[:-1] + (s - U.shape[-1],))],
+                      dim=-1)
+    fac = _factorize_by_name(H, U, cfg.factorizer, base=cfg.chol_base)
     return QPWork(fac=fac, A=A, D=D, rho_vec=rho_vec)
 
 
 def run_iters(work, q, l, u, cfg, x, z, y, iters, box_idx=None):
     """Fixed-count ADMM sweeps on prepared data (OSQP splitting)."""
     rho = work.rho_vec
+    solve = _solver_for(work.fac)
     for _ in range(iters):
         rhs = cfg.sigma * x - q + _At_matvec(work.A, work.D, rho * z - y,
                                              box_idx)
-        x_t = solve_factorized(work.fac, rhs)
+        x_t = solve(work.fac, rhs)
         z_t = _A_matvec(work.A, work.D, x_t, box_idx)
         x_new = cfg.alpha * x_t + (1.0 - cfg.alpha) * x
         z_relax = cfg.alpha * z_t + (1.0 - cfg.alpha) * z
@@ -238,4 +481,13 @@ def admm_solve(G, B, C, P_diag, q, l, u, cfg, x0=None, z0=None, y0=None,
     z = torch.zeros_like(l) if z0 is None else z0
     y = torch.zeros_like(l) if y0 is None else y0
     x, z, y = run_iters(work, q, l, u, cfg, x, z, y, cfg.iters, box_idx)
+    if cfg.polish_iters > 0:
+        # equality polish: boosted equality rho, refactorize, more sweeps
+        # from the carried (x, z, y); the inequalities keep their rho
+        rho_p = torch.where((u - l) < 1e-7, cfg.polish_boost * work.rho_vec,
+                            work.rho_vec)
+        work_p = prepare(G, B, C, P_diag, l, u, cfg, box_idx=box_idx,
+                         rho_vec=rho_p, c_eye_rows=c_eye_rows)
+        x, z, y = run_iters(work_p, q, l, u, cfg, x, z, y, cfg.polish_iters,
+                            box_idx)
     return ((x, z, y), work) if return_work else (x, z, y)

@@ -1,17 +1,20 @@
-"""SQP outer loop with the vectorized filter line search and the corrector.
+"""SQP outer loop with the vectorized filter line search, the corrector and
+the accurate-mode closers.
 
-PyTorch counterpart of ``SQPConfig``, ``SolverState`` and
-``SQPSolver._solve`` in ``tpu_locoman/solver/sqp.py``, batched over
-scenarios: every per-scenario scalar (alpha, violation, status) is a (B,)
-tensor. Not ported yet (ROADMAP queue 1, item 11): ``kkt_polish`` and
-``eq_projection`` (accurate mode).
+PyTorch counterpart of ``SQPConfig`` (with the ``fast`` and ``accurate``
+presets), ``SolverState`` and ``SQPSolver._solve`` in
+``tpu_locoman/solver/sqp.py``, batched over scenarios: every per-scenario
+scalar (alpha, violation, status) is a (B,) tensor, and the
+``eq_projection`` scan is a loop over passes whose best-so-far safeguard is
+kept per scenario.
 """
 
 from typing import NamedTuple
 
 import torch
 
-from .qp import ADMMConfig, _A_matvec, admm_solve, run_iters
+from .qp import (ADMMConfig, _A_matvec, admm_solve, eq_project, kkt_polish,
+                 run_iters)
 
 
 class SQPConfig(NamedTuple):
@@ -34,8 +37,15 @@ class SQPConfig(NamedTuple):
         """The real-time hot config: 1 SQP iteration, 10 ADMM sweeps."""
         return cls(sqp_iters=1, admm=ADMMConfig(iters=10))
 
+    @classmethod
+    def accurate(cls):
+        """Production tolerance: mean max-violation <= 1e-3 over a rollout
+        (the reference's Fatrop tolerance). The hot config plus 4
+        equality-projection passes."""
+        return cls(sqp_iters=1, admm=ADMMConfig(iters=10), eq_projection=4)
 
-PRESETS = {"fast": SQPConfig.fast}
+
+PRESETS = {"fast": SQPConfig.fast, "accurate": SQPConfig.accurate}
 
 
 class SolverState(NamedTuple):
@@ -62,10 +72,6 @@ class SQPSolver:
     def __init__(self, transcription, config=SQPConfig()):
         if config.sqp_iters < 1:
             raise ValueError("SQPConfig.sqp_iters must be >= 1")
-        if config.kkt_polish or config.eq_projection > 0:
-            raise NotImplementedError(
-                "kkt_polish / eq_projection (accurate mode) are not ported yet "
-                "(ROADMAP queue 1, item 11)")
         self.trans = transcription
         self.cfg = config
 
@@ -118,6 +124,35 @@ class SQPSolver:
         alpha = torch.where(accepted, alpha_acc, torch.zeros_like(alpha_acc))
         return Z + alpha[:, None, None] * d, alpha, maxv_acc, g_acc
 
+    def _eq_projection(self, Z, max_viol, P_diag, sp, shared, l_b, u_b):
+        """Accurate-mode closer: cfg.eq_projection Gauss-Newton projections
+        onto the equality manifold, each re-linearized at the current
+        iterate. The passes run unguarded (the first routinely overshoots
+        on the rnea curvature); the best iterate by true max violation is
+        kept per scenario, and a non-finite pass restarts from it."""
+        t = self.trans
+        cfg = self.cfg
+        md = t.m_dense
+        eq_rows = (u_b[..., :md] - l_b[..., :md]) < 1e-7
+        best_Z, best_viol = Z, max_viol
+        for _ in range(cfg.eq_projection):
+            g_now, Gf, Bf, Cf = t.linearize(Z, sp, shared)
+            row_norm = torch.maximum(
+                Gf.abs().amax(-1),
+                torch.maximum(Bf.abs().amax(-1), Cf.abs().amax(-1)))
+            W = (eq_rows & (row_norm > 1e-8)).to(Z.dtype)
+            r = l_b[..., :md] - g_now[..., :md]
+            Z = Z + eq_project(Gf, Bf, Cf, P_diag, r, W,
+                               factorizer=cfg.admm.factorizer,
+                               base=cfg.admm.chol_base)
+            viol_try = _amax(_viol(t.evaluate(Z, sp, shared), l_b, u_b))
+            finite = torch.isfinite(viol_try)
+            better = finite & (viol_try <= best_viol)
+            best_Z = torch.where(better[:, None, None], Z, best_Z)
+            best_viol = torch.where(better, viol_try, best_viol)
+            Z = torch.where(finite[:, None, None], Z, best_Z)
+        return best_Z, best_viol
+
     def solve(self, state, stage_params, shared):
         """One MPC solve per scenario; returns (new_state, stats). TF32 is
         off for the whole solve: reduced-precision products wreck the KKT
@@ -147,6 +182,8 @@ class SQPSolver:
                 G, Bm, C, P_diag, q, l_b - g, u_b - g, admm_cfg, z0=z_admm,
                 y0=y_admm, box_idx=box, return_work=True,
                 c_eye_rows=t.c_eye_rows)
+            if cfg.kkt_polish:
+                d = kkt_polish(G, Bm, C, P_diag, q, l_b - g, u_b - g, z_admm)
             # a failed QP (NaN) is a zero step, not a poisoned iterate
             bad = torch.isnan(d).any(-1).any(-1)
             keep = ~bad[:, None, None]
@@ -178,6 +215,10 @@ class SQPSolver:
             Z = Z + d2
             g3 = t.evaluate(Z, sp, shared)
             max_viol = _amax(_viol(g3, l_b, u_b))
+
+        if cfg.eq_projection > 0:
+            Z, max_viol = self._eq_projection(Z, max_viol, P_diag, sp, shared,
+                                              l_b, u_b)
 
         status = torch.where(bad, 2, torch.where(alpha <= 0.0, 1, 0)).to(
             torch.int32)
