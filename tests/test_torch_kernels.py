@@ -3,7 +3,12 @@ TPU kernels they replace, run in interpret mode as the JAX package's own
 tests run them off-TPU (tests/test_pallas_rbda.py, tests/test_qp.py).
 
 The CUDA kernels themselves run only on the GPU; chip_smoke.py holds each
-one against these plain versions there. Here: the wrappers' CPU dispatch.
+one against these plain versions there. Here: the wrappers' CPU dispatch
+and checks, and the build key.
+
+K1 (``chol_inv_node``) takes a whole node block on the card; its plain
+version is the recursive ``chol_inv`` with plain leaves, held here against
+JAX's ``chol_inv(base_impl="pallas")`` (the TPU kernel at the leaves).
 
 Tolerances: K2 atol 2e-4 * (max|ref| + 1) as test_pallas_rbda.py; K1 and
 the factorize+solve path 1e-4 * (max|ref| + 1) as test_qp.py (the plain
@@ -74,8 +79,11 @@ def test_k1_plain_matches_pallas_interpret(b, B):
     S = _spd(np.random.default_rng(b * 1000 + B), B, b)
     ref = np.asarray(chol_inv_base_batched(jnp.asarray(S), interpret=True))
     before = chol_base.launches
-    out = chol_base.chol_inv_base(torch.tensor(S)).numpy()
+    out = chol_base.chol_inv_node(torch.tensor(S)).numpy()
     assert chol_base.launches == before
+    # b <= 16: the plain version is the recursion's plain leaf itself
+    np.testing.assert_array_equal(
+        out, chol_base.chol_inv_base_plain(torch.tensor(S)).numpy())
     np.testing.assert_allclose(out, ref, atol=1e-4 * (np.abs(ref).max() + 1))
     # and it is the inverse Cholesky factor: Linv S Linv^T = I
     eye = np.einsum("bij,bjk,blk->bil", out.astype(np.float64), S, out)
@@ -86,8 +94,57 @@ def test_k1_plain_matches_pallas_interpret(b, B):
 def test_k1_plain_keeps_nan_for_non_spd():
     S = np.tile(np.eye(14, dtype=np.float32), (3, 1, 1))
     S[1] *= -1.0
-    out = chol_base.chol_inv_base(torch.tensor(S))
+    out = chol_base.chol_inv_node(torch.tensor(S))
     assert torch.isnan(out[1]).any() and torch.isfinite(out[0]).all()
+
+
+@pytest.mark.parametrize("s", [78, 110])
+def test_k1_node_plain_matches_jax_pallas_interpret(s):
+    """K1's plain version (the recursion with plain leaves) against JAX's
+    chol_inv with Pallas leaves, vmapped so the leaf kernel fires in
+    interpret mode through its custom_vmap rule, at the node widths of the
+    Go2 and accurate B2G paths."""
+    S = _spd(np.random.default_rng(s), 3, s)
+    ref = np.asarray(jax.vmap(functools.partial(
+        jqp.chol_inv, base=16, base_impl="pallas"))(jnp.asarray(S))[1])
+    before = chol_base.launches
+    out = chol_base.chol_inv_node(torch.tensor(S)).numpy()
+    assert chol_base.launches == before  # CPU tensors: the plain version
+    np.testing.assert_allclose(out, ref, atol=1e-4 * (np.abs(ref).max() + 1))
+
+
+@pytest.mark.parametrize("s", [13, 105])
+def test_chol_inv_kernel_impl_on_cpu_is_the_plain_recursion(s):
+    """chol_inv(base_impl="kernel") on CPU tensors recurses to the plain
+    leaves: the same Linv as the plain recursion, and no launch."""
+    S = torch.tensor(_spd(np.random.default_rng(s + 1), 2, s))
+    before = chol_base.launches
+    L, Linv = tqp.chol_inv(S, 16, "kernel")
+    assert L is None and chol_base.launches == before
+    ref = tqp.chol_inv(S, 16, "torch")[1]
+    torch.testing.assert_close(Linv, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("s, blocks", [
+    (1, [1]), (105, [105]), (112, [112]), (113, [57, 56]),
+    (224, [112, 112]), (225, [57, 56, 112]), (300, [75, 75, 75, 75])])
+def test_k1_kernel_blocks_tile_s(s, blocks):
+    """The blocks chol_inv hands to one K1 launch each on the card: widths
+    <= MAX_S that tile s, following the recursion's split."""
+    assert tqp.kernel_blocks(s) == blocks
+    assert sum(blocks) == s and max(blocks) <= chol_base.MAX_S
+
+
+def test_k1_wrapper_rejects_what_the_kernel_cannot_take():
+    """The checks chol_inv_node makes before a launch: float32, square
+    blocks, 1 <= s <= MAX_S."""
+    z = torch.zeros
+    for S in (z(4, 8, 8, dtype=torch.float64), z(4, 8, 6), z(8),
+              z(2, 113, 113)):
+        with pytest.raises(ValueError):
+            chol_base._check(S)
+    chol_base._check(z(2, 112, 112))
+    chol_base._check(z(3, 2, 105, 105))
 
 
 def test_factorize_cholinv_pb_matches_jax_interpret():
@@ -167,17 +224,28 @@ def test_k3_wrapper_rejects_what_the_kernel_cannot_take():
     fac_whole._check(z(1, 3, 112, 112), z(1, 2, 112, 112))
 
 
-def test_build_key_is_stable():
-    """The kernel build directory is keyed by the sources and flags alone
-    (the build itself needs nvcc and runs on the GPU machine)."""
+def test_build_key_is_stable(tmp_path):
+    """The kernel build directory is keyed by the sources, headers included,
+    and the flags alone (the build itself needs nvcc and runs on the GPU
+    machine): editing a header changes the key."""
+    import shutil
+
     from tpu_locoman_torch import _build
 
     srcs = _build._sources()
-    assert [s.rsplit("/", 1)[-1] for s in srcs] == ["chol_inv_base.cu",
+    assert [s.rsplit("/", 1)[-1] for s in srcs] == ["chol_inv_node.cu",
+                                                    "chol_tile.cuh",
                                                     "fac_whole.cu",
                                                     "rnea_derivs.cu"]
-    assert set(_build._SIGNATURES) == {"chol_inv_base_launch",
+    assert set(_build._SIGNATURES) == {"chol_inv_node_launch",
                                        "fac_whole_launch",
                                        "rnea_derivs_launch"}
     assert _build._digest(srcs) == _build._digest(list(srcs))
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH
+    copy = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, copy)
+    before = _build._digest(_build._sources(str(copy)))
+    assert before == _build._digest(srcs)
+    with open(copy / "chol_tile.cuh", "a") as fh:
+        fh.write("// edited\n")
+    assert _build._digest(_build._sources(str(copy))) != before

@@ -3,9 +3,10 @@
 Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process (all started
 together) for ``sm_90a``, then the objects are linked into one shared
 library with a plain C interface, loaded with ``ctypes``. The build goes to
-``tpu_locoman_torch/_build/<hash>/``, keyed by a hash of the sources and the
-flags, at first use; nothing is downloaded. The sources include only the
-CUDA runtime headers.
+``tpu_locoman_torch/_build/<hash>/``, keyed by a hash of the sources (the
+``.cu`` files and the ``.cuh`` headers beside them) and the flags, at first
+use; nothing is downloaded. Besides their own headers the sources include
+only the CUDA runtime headers.
 """
 
 import ctypes
@@ -33,7 +34,7 @@ build_log = ""
 _C_VOID = ctypes.c_void_p
 _C_INT = ctypes.c_int
 _SIGNATURES = {
-    "chol_inv_base_launch": [_C_VOID, _C_VOID, _C_INT, _C_INT, _C_VOID],
+    "chol_inv_node_launch": [_C_VOID, _C_VOID, _C_INT, _C_INT, _C_VOID],
     "rnea_derivs_launch": [_C_VOID] * 19 + [_C_INT] * 4 + [_C_VOID],
     "fac_whole_launch": [_C_VOID] * 5 + [_C_INT] * 3 + [_C_VOID],
 }
@@ -47,8 +48,11 @@ def _nvcc():
     return path
 
 
-def _sources():
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+def _sources(csrc=CSRC):
+    """The kernel sources: each ``.cu`` file (compiled on its own) and the
+    ``.cuh`` headers they include, which the build key must cover too."""
+    return sorted(glob.glob(os.path.join(csrc, "*.cu"))
+                  + glob.glob(os.path.join(csrc, "*.cuh")))
 
 
 def _digest(sources):
@@ -74,7 +78,7 @@ def build():
     nvcc = _nvcc()
     work = tempfile.mkdtemp(dir=BUILD_ROOT)
     procs = []
-    for src in sources:
+    for src in (s for s in sources if s.endswith(".cu")):
         obj = os.path.join(work, os.path.basename(src) + ".o")
         cmd = [nvcc] + ARCH + FLAGS + ["-c", src, "-o", obj]
         procs.append((src, obj, subprocess.Popen(

@@ -1,27 +1,35 @@
-"""K1: inverse Cholesky factor of a batch of small SPD blocks.
+"""K1: inverse Cholesky factor of a batch of SPD node blocks, one launch.
 
 Replaces the TPU kernel ``chol_inv_base_batched`` / ``_base_kernel`` in
-``tpu_locoman/solver/pallas_base.py``: S (B, b, b) float32 -> L^-1 with
-S = L L^T, at the leaves (b <= chol_base) of every node's ``chol_inv``
-recursion in ``factorize(chol_impl="cholinv_pb")``.
+``tpu_locoman/solver/pallas_base.py``, which factors the b <= chol_base
+leaves of every node's ``chol_inv`` recursion in
+``factorize(chol_impl="cholinv_pb")``. On the card the recursion is gone
+up to s = ``MAX_S``: ``chol_inv_node`` takes S (B, s, s) float32 to L^-1
+with S = L L^T in one launch of ``csrc/chol_inv_node.cu`` (one CTA per
+block running the same 2x2 recursion in shared memory,
+``csrc/chol_tile.cuh``), where the torch recursion made 8 leaf launches
+and ~70 small torch operations per node at s = 105.
 
-What bounds it on an H100: launch latency. One tick's factorization makes
-120 calls (8 leaves of b in {13, 14} per node x 15 nodes at the flagship
-s = 105), each on ~100 KB at batch 512, so FLOPs and bytes do not matter;
-the kernel (``csrc/chol_inv_base.cu``) finishes each call in one short
-wave: one warp per matrix held in shared memory, a lane per row for the
-Cholesky and a lane per column for the triangular inverse.
+What bounds it on an H100: bytes, 2 s^2 floats moved per block against
+~2 s^3 / 3 operations (see the kernel's source note).
 
-``chol_inv_base`` takes the plain version only for CPU tensors; on a CUDA
-tensor it launches the kernel or raises.
+``chol_inv_node`` takes the plain version only for CPU tensors; on a CUDA
+tensor it launches the kernel or raises. The plain version is the
+recursion with its plain leaves, ``qp.chol_inv(S, 16, "torch")``; its
+leaves (``chol_base_unrolled``, ``tri_inv_doubling``) are ports of the TPU
+kernel's algorithm and stay the CPU path of ``base_impl="kernel"``.
 """
 
 import ctypes
 
 import torch
 
-#: kernel launches made by ``chol_inv_base`` (the CUDA path only)
+#: kernel launches made by ``chol_inv_node`` (the CUDA path only)
 launches = 0
+
+#: widest block the kernel takes: two padded s x (s+4) f32 tiles per CTA,
+#: so that two CTAs share an SM (s = 112: 104 KB)
+MAX_S = 112
 
 
 def chol_base_unrolled(S):
@@ -60,31 +68,46 @@ def tri_inv_doubling(L, dinv):
 
 
 def chol_inv_base_plain(S):
-    """Plain PyTorch version of the kernel."""
+    """L^-1 of small blocks (s <= chol_base): the recursion's plain leaf."""
     L, dinv = chol_base_unrolled(S)
     return tri_inv_doubling(L, dinv)
 
 
-def chol_inv_base(S):
-    """L^-1 of a (B, b, b) batch of SPD blocks (leading dims flattened)."""
+def chol_inv_node_plain(S):
+    """Plain PyTorch version of the kernel: the recursive 2x2 block
+    Cholesky with plain leaves (s <= 16), the kernel's split points."""
+    from .qp import chol_inv
+
+    return chol_inv(S, 16, "torch")[1]
+
+
+def _check(S):
+    """Raise on what the kernel does not take."""
+    if S.dtype != torch.float32:
+        raise ValueError("chol_inv_node: need float32")
+    if (S.dim() < 2 or S.shape[-2] != S.shape[-1]
+            or not 1 <= S.shape[-1] <= MAX_S):
+        raise ValueError(f"chol_inv_node: need square blocks (..., s, s) "
+                         f"with 1 <= s <= {MAX_S}, got {tuple(S.shape)}")
+
+
+def chol_inv_node(S):
+    """L^-1 of a (..., s, s) batch of SPD blocks, s <= MAX_S."""
     global launches
     if not S.is_cuda:
-        return chol_inv_base_plain(S)
+        return chol_inv_node_plain(S)
     from .._build import load
 
-    lead, b = S.shape[:-2], S.shape[-1]
-    if S.dtype != torch.float32:
-        raise ValueError("chol_inv_base: need float32")
-    if S.shape[-2] != b or not 1 <= b <= 32:
-        raise ValueError(f"chol_inv_base: need square blocks, 1 <= b <= 32, "
-                         f"got {tuple(S.shape)}")
-    Sf = S.reshape(-1, b, b).contiguous()
+    _check(S)
+    lead, s = S.shape[:-2], S.shape[-1]
+    Sf = S.reshape(-1, s, s).contiguous()
     out = torch.empty_like(Sf)
     stream = torch.cuda.current_stream(S.device).cuda_stream
-    rc = load().chol_inv_base_launch(
+    rc = load().chol_inv_node_launch(
         ctypes.c_void_p(Sf.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_int(Sf.shape[0]), ctypes.c_int(b), ctypes.c_void_p(stream))
+        ctypes.c_int(Sf.shape[0]), ctypes.c_int(s), ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"chol_inv_base kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"chol_inv_node kernel launch failed: CUDA error "
+                           f"{rc}")
     launches += 1
-    return out.reshape(lead + (b, b))
+    return out.reshape(lead + (s, s))

@@ -19,12 +19,11 @@ bound is operations at 67 TFLOP/s, 1.15 us at Bs=1 (0.59 ms at Bs=512).
 The kernel (``csrc/fac_whole.cu``) keeps one scenario's running state
 (S/L, Linv, F_{i-1}, U_i) resident in the shared memory of one CTA and
 walks the nodes in a loop, so nothing but H, U and the outputs touches
-device memory; but one CTA is one of 132 SMs, and its critical path is
-the node recurrence with one barrier per Cholesky column. At Bs=1 it is
-bound by that serial path on one SM, not by the card; at batch 512 the
-CTAs fill the card in four waves. The Cholesky is left-looking (each
-entry one dot product, rounded once): the right-looking in-place update
-measured about twice the solve error on the flagship's KKT blocks.
+device memory. Its products are register-tiled, and Linv_i comes from
+the 2x2 block recursion it shares with K1 (``csrc/chol_tile.cuh``): about
+41 block barriers per node where the column-by-column design took about
+225. At Bs=1 it is still one SM's work with a dependent chain
+of panel steps; at batch 512 the CTAs fill the card in four waves.
 Splitting a scenario over a cluster of CTAs is later work.
 
 ``factorize_whole`` takes the plain version only for CPU tensors; on a CUDA
@@ -38,8 +37,8 @@ import torch
 #: kernel launches made by ``factorize_whole`` (the CUDA path only)
 launches = 0
 
-#: widest block the kernel takes: four s x (s+1) f32 tiles must fit in the
-#: 227 KB of shared memory one block can have (s = 112: 198 KB)
+#: widest block the kernel takes: four padded s x (s+4) f32 tiles must fit
+#: in the 227 KB of shared memory one block can have (s = 112: 203 KB)
 MAX_S = 112
 
 
@@ -62,7 +61,7 @@ def _check(H, U):
                          f"{tuple(U.shape)}")
     if s > MAX_S:
         raise ValueError(f"factorize_whole: s={s} > {MAX_S}: the kernel "
-                         f"keeps four s x (s+1) f32 tiles in one block's "
+                         f"keeps four s x (s+4) f32 tiles in one block's "
                          f"shared memory")
     if U.device != H.device:
         raise ValueError("factorize_whole: H and U must be on one device")

@@ -2,16 +2,18 @@
 
 PyTorch counterpart of ``tpu_locoman/solver/qp.py`` on the
 ``scaling_iters=0`` path: ``assemble_blocks`` (propagation-pattern C), the
-recursive ``chol_inv`` whose leaves are kernel K1, ``factorize`` with skinny
-couplings, the whole-horizon factorization of kernel K3
-(``factorizer="pallas"``, ``fac_whole.py``), the two-chain BABE factorizer,
+recursive ``chol_inv`` (on the card: each node block whole in one launch of
+kernel K1), ``factorize`` with skinny couplings, the whole-horizon
+factorization of kernel K3 (``factorizer="pallas"``, ``fac_whole.py``),
+the two-chain BABE factorizer,
 ``solve_factorized`` / ``solve_babe``, the box-row matvecs, ``prepare`` /
 ``run_iters`` / ``admm_solve`` with the equality-polish phase, and the
 accurate-mode closers ``kkt_polish`` and ``eq_project``. Every tensor
 carries the scenario axis first: G (Bs, N, m, ndx), P_diag (Bs, N+1, s), ...
 
-The recursion's panel products, the Schur updates and the ADMM sweeps are
-plain batched products (left to XLA in the JAX package, to cuBLAS here).
+The recursion's panel products (CPU path), the Schur updates and the ADMM
+sweeps are plain batched products (left to XLA in the JAX package, to
+cuBLAS here).
 Not ported yet (ROADMAP queue 1, item 12): Ruiz scaling, bf16 storage, and
 the sequential and cyclic factorizers.
 """
@@ -20,7 +22,8 @@ from typing import NamedTuple
 
 import torch
 
-from .chol_base import chol_base_unrolled, chol_inv_base, tri_inv_doubling
+from .chol_base import (MAX_S, chol_base_unrolled, chol_inv_base_plain,
+                        chol_inv_node, tri_inv_doubling)
 from .fac_whole import factorize_whole
 
 #: the factorizers the port has; "auto" is "cholinv_pb" on CUDA tensors and
@@ -35,8 +38,10 @@ class ADMMConfig(NamedTuple):
     alpha: float = 1.4
     scaling_iters: int = 0
     eq_boost: float = 1e3
-    # "cholinv_pb" computes the recursion leaves with kernel K1 on CUDA
-    # tensors; "cholinv" computes them in plain torch on any device;
+    # "cholinv_pb" factors each node block (s <= 112) in one launch of
+    # kernel K1 on CUDA tensors, and by the recursion with plain leaves on
+    # CPU tensors; "cholinv" runs the recursion in plain torch on any
+    # device (chol_base sets its leaf width; see chol_inv);
     # "pallas" runs each scenario's whole factorization as one launch of
     # kernel K3; "babe" / "babe_pb" eliminate the horizon from both ends
     # (leaves as "cholinv" / "cholinv_pb"). Every product is full float32
@@ -108,17 +113,40 @@ def assemble_blocks(G, B, C, P_diag, rho_vec, sigma, box_idx=None,
     return H, U, A, k
 
 
+def _split(s):
+    """Size of the leading block of chol_inv's 2x2 split of an s x s block."""
+    return (s + 1) // 2
+
+
+def kernel_blocks(s):
+    """Sizes of the blocks, in order, that chol_inv(base_impl="kernel")
+    hands to one K1 launch each on a CUDA tensor of width s: s itself up to
+    MAX_S, else the 2x2 recursion's blocks down to widths <= MAX_S."""
+    if s <= MAX_S:
+        return [s]
+    k = _split(s)
+    return kernel_blocks(k) + kernel_blocks(s - k)
+
+
 def chol_inv(S, base=16, base_impl="torch"):
     """(L, Linv) of SPD blocks (..., s, s) by recursive 2x2 block Cholesky.
-    base_impl="kernel" computes the leaves (s <= base) with K1 and then
-    materializes only Linv (L is None)."""
+
+    base_impl="kernel" materializes only Linv (L is None). On a CUDA
+    tensor it hands every block of width <= MAX_S (112) whole to one K1
+    launch (``chol_inv_node``), recursing only above that
+    (``kernel_blocks``), so ``base`` (``ADMMConfig.chol_base``) does not
+    shape the factorization there: the factor is the same up to f32
+    roundoff. On a CPU tensor it recurses to leaves s <= base and computes
+    them in plain torch, as base_impl="torch" does."""
     s = S.shape[-1]
+    if base_impl == "kernel" and S.is_cuda and s <= MAX_S:
+        return None, chol_inv_node(S)
     if s <= base:
         if base_impl == "kernel":
-            return None, chol_inv_base(S)
+            return None, chol_inv_base_plain(S)
         L, dinv = chol_base_unrolled(S)
         return L, tri_inv_doubling(L, dinv)
-    k = (s + 1) // 2
+    k = _split(s)
     L1, L1i = chol_inv(S[..., :k, :k], base, base_impl)
     L21 = S[..., k:, :k] @ L1i.transpose(-1, -2)
     S2 = S[..., k:, k:] - L21 @ L21.transpose(-1, -2)
@@ -378,8 +406,8 @@ def kkt_polish(G, B, C, P_diag, q, l, u, z, box_idx=None, sigma=1e-6,
     The JAX package factorizes the constraint-space Schur complement with
     its "blocked" Cholesky (XLA's loop Cholesky by panels, ROADMAP item 12).
     The port takes its "cholinv" factorization on CPU tensors and
-    "cholinv_pb" (K1 leaves) on CUDA tensors: the same factor, with the f32
-    sums in another order."""
+    "cholinv_pb" (K1, one launch per node) on CUDA tensors: the same
+    factor, with the f32 sums in another order."""
     m = G.shape[2]
     ld, ud, zd = l[..., :m], u[..., :m], z[..., :m]
     eq = (ud - ld) < 1e-7
