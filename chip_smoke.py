@@ -13,7 +13,9 @@ Phases, one line each (any failure raises; exit code non-zero):
  2. build the CUDA kernels from tpu_locoman_torch/csrc (nvcc, sm_90a);
  3. K1 (chol_inv_node: a whole node block per CTA) against its plain
     version on the card, at the path's node shapes;
- 4. K2 (rnea_derivs) against its plain version on the card;
+ 4. K2 (rnea_derivs) against its plain version on the card, B2G at the
+    flagship's and the accurate path's flat batches and Go2, with the device
+    ms of the plain-torch forward pass that feeds it;
  5. the flagship main path: B2G + Z1 whole_body_rnea, N=14, trot 0.8 s,
     the SHIPPING.json bench_defaults, batch 512, target vx 0.2 — 2 warm-up
     and 20 timed ticks, with the kernel launch counts of that run;
@@ -63,6 +65,10 @@ SOLVE_ERR_RATIO = 1.25
 # 700 W (PERF.md): (K, s, Bs) -> ms
 K3_FIRST_MS = {(15, 105, 1): 3.8687, (15, 105, 512): 15.6523,
                (14, 110, 1): 3.8514, (14, 110, 512): 15.5858}
+# K2's first design (one CTA per element, dense masked sums), (device ms,
+# call ms) per call with forces on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md), by B2G flat batch
+K2_FIRST_MS = {7168: (0.6427, 0.6460), 14: (0.0270, 0.0739)}
 # K1's shapes on the path: the flagship's node (s = 105 at batch 512), the
 # eq-projection node (110), Go2's (78), and the old leaf shape (14)
 K1_SHAPES = ((512, 105), (512, 110), (5, 78), (512, 14))
@@ -106,11 +112,12 @@ def median_ms(torch, fn, reps=30, warm=3):
     return times[len(times) // 2]
 
 
-def device_ms(torch, fn, reps=20, warm=3):
+def device_ms(torch, fn, reps=20, warm=3, mode="relaxed"):
     """Device ms: CUDA events around one replay of a CUDA graph that holds
     reps calls of fn, divided by reps: the device's time for one call
     without the host's enqueue. fn must be capturable (no host sync and no
-    copy from the host)."""
+    copy from the host); mode is the capture's error mode ("global" also
+    refuses unsafe calls from other threads)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -118,7 +125,7 @@ def device_ms(torch, fn, reps=20, warm=3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+    with torch.cuda.graph(graph, capture_error_mode=mode):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -134,9 +141,9 @@ def device_ms(torch, fn, reps=20, warm=3):
     return ms
 
 
-def times(torch, fn, reps=20):
+def times(torch, fn, reps=20, mode="relaxed"):
     """(device ms, call ms) of fn."""
-    return device_ms(torch, fn, reps), median_ms(torch, fn, reps)
+    return device_ms(torch, fn, reps, mode=mode), median_ms(torch, fn, reps)
 
 
 def bound(nbytes, ops):
@@ -144,6 +151,17 @@ def bound(nbytes, ops):
     nbytes and do ops f32 operations."""
     t_b, t_o = nbytes / H100_BYTES_PER_S, ops / H100_F32_PER_S
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def nonfinite_pattern(torch, M):
+    """Counts of NaN, inf and finite entries of the square matrix M below,
+    on and above its diagonal: {"below": (nan, inf, finite), ...}."""
+    n = M.shape[-1]
+    r = torch.arange(n, device=M.device)
+    parts = {"below": r[:, None] > r[None, :], "diag": r[:, None] == r[None, :],
+             "above": r[:, None] < r[None, :]}
+    return {k: (int(torch.isnan(M[m]).sum()), int(torch.isinf(M[m]).sum()),
+                int(torch.isfinite(M[m]).sum())) for k, m in parts.items()}
 
 
 def hot_mpc(T, device, factorizer, nodes=14, ship=None):
@@ -514,10 +532,15 @@ def main():
     out = chol_base.chol_inv_node(bad)
     check(torch.isnan(out[1]).any() and torch.isfinite(out[0]).all(),
           "K1 must keep NaN for a non-SPD block")
+    nan_pattern = {"kernel": nonfinite_pattern(torch, out[1]),
+                   "plain": nonfinite_pattern(
+                       torch, chol_base.chol_inv_node_plain(bad)[1])}
     k1_main = k1_rows[0]
     log(f"[3 K1] chol_inv_node == plain for (B, s) in {K1_SHAPES}: max abs "
         f"err {k1_err:.3g} (normalized tol {K1_TOL}); NaN kept for a "
-        f"non-SPD block; device ms / call ms: " + "; ".join(
+        f"non-SPD block (-I, s=105; NaN / inf / finite entries below, on "
+        f"and above the diagonal: kernel {nan_pattern['kernel']}, plain "
+        f"{nan_pattern['plain']}); device ms / call ms: " + "; ".join(
             f"B={r['B']} s={r['s']}: kernel {r['kernel'][0]:.4f} / "
             f"{r['kernel'][1]:.4f}, plain {r['plain'][0]:.4f} / "
             f"{r['plain'][1]:.4f}, cholesky_ex + solve_triangular "
@@ -525,14 +548,15 @@ def main():
             f"{r['bound'][0]:.6f} ({r['bound'][1]})" for r in k1_rows))
 
     # ---- 4. K2 against its plain version ---------------------------------
-    robot = T.B2G()
-    robot.set_gait_sequence("trot", 0.8)
-    m = robot.model
-    ee = tuple(robot.FOOT_FRAMES) + (robot.ext_force_frame,)
-    k2_err = 0.0
-    k2_inputs = None
-    for B in (7168, 5):
-        q, v, a, r2 = k2_samples(np, robot, B, seed=B)
+    # B2G at the flagship's flat batch (512 x 14), at accurate batch 1's
+    # (14) and at a ragged 5; Go2 at 7168: with and without forces
+    k2_err, k2_inputs = 0.0, {}
+    for name, B in (("B2G", 7168), ("B2G", 14), ("B2G", 5), ("Go2", 7168)):
+        rob = getattr(T, name)()
+        m = rob.model
+        ee = tuple(rob.FOOT_FRAMES) + ((rob.ext_force_frame,)
+                                       if rob.ext_force_frame else ())
+        q, v, a, r2 = k2_samples(np, rob, B, seed=B + len(ee))
         f = r2.standard_normal((B, 3 * len(ee))).astype(np.float32) * 50.0
         qt, vt, at, ft = (torch.tensor(x, device=dev) for x in (q, v, a, f))
         for with_f in (True, False):
@@ -542,41 +566,51 @@ def main():
             torch.cuda.synchronize()
             check(len(out) == len(ref) == (4 if with_f else 3),
                   f"K2 outputs: {len(out)} from the kernel, {len(ref)} plain")
-            for name, o, r in zip(("dq", "dv", "da", "df"), out, ref):
+            for oname, o, r in zip(("dq", "dv", "da", "df"), out, ref):
                 e = float((o - r).abs().max())
                 tol = K2_TOL * (float(r.abs().max()) + 1.0)
                 check(e <= tol,
-                      f"K2 {name} B={B} forces={with_f}: {e} > {tol}")
+                      f"K2 {name} {oname} B={B} forces={with_f}: {e} > {tol}")
                 k2_err = max(k2_err, e)
-        if B == 7168:
-            k2_inputs = (m, qt, vt, at, ee, ft)
-    m_, q_, v_, a_, ee_, f_ = k2_inputs
-    fq = rnea_derivs.forward_quantities(m_, q_, v_, a_, ee_, f_)
-    k2_t = times(torch, lambda: rnea_derivs.derivative_pass(
-        m_, fq, v_, a_, ee_, f_))
-    # the plain pass and the forward quantities copy index arrays from the
-    # host, so no CUDA graph holds them: call ms only
-    k2_plain_ms = median_ms(torch, lambda: rnea_derivs.derivative_pass_plain(
-        m_, fq, v_, a_, ee_, f_), reps=20)
-    fwd_ms = median_ms(torch, lambda: rnea_derivs.forward_quantities(
-        m_, q_, v_, a_, ee_, f_), reps=20)
-    # bytes: the kernel's inputs (forward quantities, v, a, forces) read and
-    # its four outputs written; operations: per live (link, dof) pair of the
-    # ancestry, 6 spatial-inertia products (72 each), 8 spatial cross
-    # products (30 each) and its share of the three subtree sums (36)
-    k2_in = [fq[k] for k in ("Sw", "Iw", "sdot", "Vl", "A", "Iv", "IA", "f",
-                             "pf")] + [v_, a_, f_]
-    nv, nfr = m_.nv, len(ee_)
-    k2_out = 7168 * (3 * nv * nv + nv * 3 * nfr)
-    pairs = float(m_.tensors(dev)["anc"].sum())
-    k2_bound = bound(4 * (sum(t.numel() for t in k2_in) + k2_out),
-                     7168 * pairs * (6 * 72 + 8 * 30 + 36))
-    log(f"[4 K2] rnea_derivatives == plain for B2G B in (7168, 5), with and "
-        f"without forces: max abs err {k2_err:.3g} (tol {K2_TOL}*(max+1)); "
-        f"B=7168 with forces, derivative pass, device ms / call ms: kernel "
-        f"{k2_t[0]:.4f} / {k2_t[1]:.4f}, plain (call ms only) "
-        f"{k2_plain_ms:.4f}, bound {k2_bound[0]:.4f} ({k2_bound[1]}); the "
-        f"plain-torch forward pass both take first (call ms): {fwd_ms:.4f}")
+        if name == "B2G" and B in (7168, 14):
+            k2_inputs[B] = (m, qt, vt, at, ee, ft)
+    k2_rows = {}
+    for B, (m_, q_, v_, a_, ee_, f_) in k2_inputs.items():
+        fq = rnea_derivs.forward_quantities(m_, q_, v_, a_, ee_, f_)
+        reps = 20 if B > 14 else 100
+        # the forward pass and the plain pass copy nothing from the host,
+        # so a CUDA graph holds them as it holds the kernel
+        row = {"kernel": times(torch, lambda: rnea_derivs.derivative_pass(
+            m_, fq, v_, a_, ee_, f_), reps, "global"),
+               "plain": times(torch, lambda: rnea_derivs.derivative_pass_plain(
+                   m_, fq, v_, a_, ee_, f_), min(reps, 20), "global"),
+               "forward": times(torch, lambda: rnea_derivs.forward_quantities(
+                   m_, q_, v_, a_, ee_, f_), min(reps, 20), "global")}
+        # bytes: the kernel's inputs (forward quantities, v, a, forces) read
+        # and its four outputs written; operations: per live (link, dof)
+        # pair of the ancestry, 6 spatial-inertia products (72 each), 8
+        # spatial cross products (30 each) and its share of the three
+        # subtree sums (36)
+        k2_in = [fq[k] for k in ("Sw", "Iw", "sdot", "Vl", "A", "Iv", "IA",
+                                 "f", "pf")] + [v_, a_, f_]
+        nv, nfr = m_.nv, len(ee_)
+        k2_out = B * (3 * nv * nv + nv * 3 * nfr)
+        pairs = float(m_.tensors(dev)["anc"].sum())
+        row["bound"] = bound(4 * (sum(t.numel() for t in k2_in) + k2_out),
+                             B * pairs * (6 * 72 + 8 * 30 + 36))
+        row["first"] = K2_FIRST_MS.get(B)
+        k2_rows[B] = row
+        del fq
+    log("[4 K2] rnea_derivatives == plain for B2G B in (7168, 14, 5) and Go2 "
+        f"B=7168, with and without forces: max abs err {k2_err:.3g} (tol "
+        f"{K2_TOL}*(max+1)); B2G with forces, device ms / call ms: " + "; ".join(
+            f"B={B} ({rnea_derivs.lanes_per_element(B, dev)} threads per "
+            f"element): kernel {r['kernel'][0]:.4f} / {r['kernel'][1]:.4f} (first "
+            f"design: {'not measured' if r['first'] is None else '%.4f / %.4f' % r['first']}"
+            f"), plain pass {r['plain'][0]:.4f} / {r['plain'][1]:.4f}, bound "
+            f"{r['bound'][0]:.6f} ({r['bound'][1]}), the plain-torch forward "
+            f"pass before it {r['forward'][0]:.4f} / {r['forward'][1]:.4f}"
+            for B, r in k2_rows.items()))
 
     # ---- 5. the flagship main path -----------------------------------------
     with open(os.path.join(ROOT, "SHIPPING.json")) as fh:
@@ -770,7 +804,8 @@ def main():
 
     # ---- 13. kernels ------------------------------------------------------------
     k3_main = next(r for r in k3_rows if (r["K"], r["Bs"]) == (14, 1))
-    # ms, plain_ms and library_ms are device ms (K2's plain_ms: call ms);
+    k2_main = k2_rows[7168]
+    # ms, plain_ms and library_ms are device ms;
     # *_call_ms the host-inclusive time of one call
     kernels = [
         {"name": "chol_inv_node", "route": "cuda",
@@ -789,9 +824,14 @@ def main():
          "source": "tpu_locoman_torch/csrc/rnea_derivs.cu",
          "replaces": "tpu_locoman/pallas_rbda.py:227",
          "launches": k2_launches, "max_abs_err": k2_err,
-         "ms": k2_t[0], "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
-         "bound_by": k2_bound[1], "library_ms": None, "call_ms": k2_t[1],
-         "plain_call_ms": k2_plain_ms,
+         "ms": k2_main["kernel"][0], "plain_ms": k2_main["plain"][0],
+         "bound_ms": k2_main["bound"][0], "bound_by": k2_main["bound"][1],
+         "library_ms": None, "call_ms": k2_main["kernel"][1],
+         "plain_call_ms": k2_main["plain"][1],
+         "forward_ms": k2_main["forward"][0],
+         "b14": {"ms": k2_rows[14]["kernel"][0],
+                 "call_ms": k2_rows[14]["kernel"][1],
+                 "bound_ms": k2_rows[14]["bound"][0]},
          "at": "B=7168 with forces; launches: flagship, 22 ticks"},
         {"name": "fac_whole", "route": "cuda",
          "source": "tpu_locoman_torch/csrc/fac_whole.cu",

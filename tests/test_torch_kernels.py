@@ -73,6 +73,89 @@ def test_k2_plain_matches_pallas_interpret(with_forces):
                                    atol=2e-4 * (np.abs(r).max() + 1))
 
 
+@pytest.mark.parametrize("name", ["B2G", "Go2"])
+def test_k2_tree_table_rebuilds_the_ancestry(name):
+    """The table the K2 kernel walks holds exactly the ancestry: its live
+    pairs are the ones of ancestry_mask(), each dof's column is its link's
+    subtree range, the live (dof, column) pairs are those of
+    anc[dof_link], and the live outputs those that share a moved link,
+    each summed over the deeper link's subtree."""
+    m = getattr(T, name)().model
+    anc = m.ancestry_mask()
+    tab = rnea_derivs.tree_table(m.parent)
+    live = np.zeros_like(anc)
+    live[tab.pairs[:, 0], tab.pairs[:, 1]] = 1.0
+    np.testing.assert_array_equal(live, anc)
+    for j, L in enumerate(m.dof_link()):
+        col = np.zeros(m.n_links)
+        col[tab.lo[L]:tab.hi[L]] = 1.0
+        np.testing.assert_array_equal(col, anc[:, j])
+        # column j's pairs start at col_off[j], links ascending
+        seg = tab.pairs[tab.col_off[j]:tab.col_off[j] + tab.hi[L] - tab.lo[L]]
+        np.testing.assert_array_equal(seg, [(i, j) for i in
+                                            range(tab.lo[L], tab.hi[L])])
+    wlive = np.zeros((m.nv, m.nv))
+    wlive[tab.wpairs[:, 0], tab.wpairs[:, 1]] = 1.0
+    np.testing.assert_array_equal(wlive, anc[m.dof_link()])
+    for q, (mm, j) in enumerate(tab.wpairs):
+        assert tab.wcol_off[j] + mm == q
+    shared = anc.T @ anc  # [k, j]: links moved by both dofs
+    olive = np.zeros((m.nv, m.nv))
+    olive[tab.outs[:, 0], tab.outs[:, 1]] = 1.0
+    np.testing.assert_array_equal(olive, shared > 0)
+    for k, j, L in tab.outs:
+        assert tab.hi[L] - tab.lo[L] == shared[k, j]
+
+
+@pytest.mark.parametrize("name", ["B2G", "Go2"])
+def test_k2_packed_table_walks_and_children(name):
+    """The records the kernel reads: each live pair's walk is the ancestor
+    dofs of its link that its column's dof moves, ascending; each pair
+    with children lists exactly its link's children, by depth; each live
+    output points at the pair of its subtree's link."""
+    m = getattr(T, name)().model
+    anc, dl = m.ancestry_mask(), m.dof_link()
+    tab = rnea_derivs.tree_table(m.parent)
+    words = rnea_derivs.pack_table(tab, [3]).view(np.uint32).astype(np.int64)
+    n, nv, npairs = m.n_links, m.nv, len(tab.pairs)
+    lvl = words[2 * n + nv + 1:2 * n + nv + 2 + rnea_derivs.MAX_DEPTH]
+    at = -(-(2 * n + nv + 2 + rnea_derivs.MAX_DEPTH) // 4) * 4
+    pairs = words[at:at + 4 * npairs].reshape(-1, 4)
+    for (i, j), r in zip(tab.pairs, pairs):
+        assert (r[0] & 255, r[0] >> 8 & 255) == (i, j)
+        code = int(r[1]) | int(r[2]) << 32
+        walk = [5 + (code >> 8 * c & 255) for c in range(r[0] >> 16 & 255)]
+        dofs = list(range(6)) * int(r[0] >> 24) + walk
+        assert dofs == [mm for mm in range(nv) if anc[i, mm] and anc[dl[mm], j]]
+    sub = words[at + 4 * npairs:at + 4 * (npairs + lvl[-1])].reshape(-1, 4)
+    with_children = [p for p, (i, _) in enumerate(tab.pairs)
+                     if (tab.parent == i).any()]
+    assert sorted(sub[:, 0] & 0xFFFF) == with_children
+    for d in range(rnea_derivs.MAX_DEPTH):
+        for r in sub[lvl[d]:lvl[d + 1]]:
+            i = tab.pairs[r[0] & 0xFFFF, 0]
+            offs = [int(r[1 + c // 4]) >> 8 * (c % 4) & 255
+                    for c in range(r[0] >> 16)]
+            assert tab.depth[i] == d
+            assert [i + o for o in offs] == list(np.flatnonzero(tab.parent == i))
+    outs = words[at + 4 * (npairs + lvl[-1]) + 2 * len(tab.wpairs):][
+        :2 * len(tab.outs)].reshape(-1, 2)
+    for (k, j, L), r in zip(tab.outs, outs):
+        assert tuple(tab.pairs[r[1] & 0xFFFF]) == (L, j)
+        assert r[1] >> 16 == tab.hi[L] - tab.lo[L]
+        assert (r[0] >> 24) == (L == dl[k])
+
+
+@pytest.mark.parametrize("parent", [(-1, 0, 1, 0, 2), (-1, 0, 2, 1),
+                                    (-1, 0, 1, 2, 3, 4, 5, 6, 7)])
+def test_k2_tree_table_rejects_what_the_kernel_cannot_walk(parent):
+    """A subtree that is not a range of links (link 4 under link 1 after
+    link 3), a parent after its child, or a tree deeper than the kernel's
+    path table raises."""
+    with pytest.raises(ValueError):
+        rnea_derivs.tree_table(parent)
+
+
 @pytest.mark.parametrize("B", [5, 130])
 @pytest.mark.parametrize("b", [13, 14, 16])
 def test_k1_plain_matches_pallas_interpret(b, B):

@@ -224,3 +224,96 @@ def test_carry_round_trip():
     for k in ("Z", "z_admm", "y_admm"):
         np.testing.assert_array_equal(back["solver_state"][k],
                                       np.asarray(getattr(jc.solver_state, k)))
+
+
+def _mixed_gait_stage_params(jm, t):
+    """Per-scenario JAX StageParams at time t for a trot (the robot's own
+    schedule) and GaitSequence("walk", 0.6), as tests/test_parallel.py mixes
+    them; returns [trot, walk] as numpy NamedTuples."""
+    from tpu_locoman.gait import GaitSequence
+
+    trot = jm.make_stage_params(jnp.float32(t))
+    c, s = GaitSequence("walk", 0.6).get_gait_schedule(jnp.float32(t), jm.dts)
+    walk = trot._replace(contact=c.T, swing=s.T)
+    return [jax.device_get(trot), jax.device_get(walk)]
+
+
+def _stack_sp(sps):
+    return convert.stage_params_from_numpy(
+        {k: np.stack([getattr(sp, k) for sp in sps])
+         for k in sps[0]._fields}, "cpu")
+
+
+def test_step_stage_params_mixed_gaits_match_jax():
+    """MPC.step(stage_params=..., prev_stage_params=...) on Go2 N=6, a batch
+    of two that mixes a trot and a walk: the port runs both as one batch,
+    JAX each scenario alone through one jitted step (the vmapped step is
+    the same math per scenario). x and max_violation after one tick at
+    _check_tick's tolerances; the flip reset reads prev_stage_params. One
+    SQP iteration without corrector and with one line-search trial keeps
+    the one JAX compile near 25 s."""
+    def cfg(mod, factorizer):
+        return mod.SQPConfig(sqp_iters=1, n_trials=1, corrector_iters=0,
+                             admm=mod.ADMMConfig(iters=10,
+                                                 factorizer=factorizer))
+
+    jrob, trob = J.Go2(), T.Go2()
+    jrob.set_gait_sequence("trot", 0.8)
+    trob.set_gait_sequence("trot", 0.8)
+    jm = J.MPC(jrob, dynamics="whole_body_rnea", nodes=6, flip_reset=True,
+               warm_shift=True, config=cfg(J, "cholinv"))
+    tm = T.MPC(trob, dynamics="whole_body_rnea", nodes=6, flip_reset=True,
+               warm_shift=True, config=cfg(T, "cholinv_pb"), device="cpu")
+    t = 0.32
+    sps = _mixed_gait_stage_params(jm, t)
+    prev = _mixed_gait_stage_params(jm, t - jm.dt_min)
+    flips = [np.any(s.contact != p.contact, axis=1) for s, p in zip(sps, prev)]
+    assert all(f.any() for f in flips)  # the reset acts in both scenarios
+    target = np.array([0.2, 0, 0, 0, 0, 0], np.float32)
+    jc = jax.device_get(jpar.batched_init(jm, 2))
+    # seeded acceleration slots, so that zeroing them at a flip shows
+    ndx, na = jm.form.ndx, jm.form.na_opt
+    Z = np.array(jc.solver_state.Z)
+    Z[:, :, ndx:ndx + na] = np.random.default_rng(6).standard_normal(
+        Z[:, :, ndx:ndx + na].shape).astype(np.float32)
+    jc = jc._replace(solver_state=jc.solver_state._replace(Z=Z))
+    jstep = jax.jit(lambda c, sp, psp: jm.step(
+        c, jnp.float32(t), jnp.asarray(target), stage_params=sp,
+        prev_stage_params=psp))
+    ref_x, ref_v = [], []
+    for i in range(2):
+        ci = jax.tree.map(lambda x: x[i], jc)
+        cn, st = jstep(ci, sps[i], prev[i])
+        ref_x.append(np.asarray(cn.x_init))
+        ref_v.append(float(st["max_violation"]))
+    tc = convert.carry_from_numpy(jc, "cpu")
+    tt = torch.tensor(target).expand(2, -1)
+    out, ts = tm.step(tc, torch.tensor(np.float32(t)), tt,
+                      stage_params=_stack_sp(sps),
+                      prev_stage_params=_stack_sp(prev))
+    np.testing.assert_allclose(out.x_init.numpy(), np.stack(ref_x), atol=1e-3)
+    np.testing.assert_allclose(ts["max_violation"].numpy(), np.array(ref_v),
+                               rtol=0.05, atol=1e-3)
+    assert not np.allclose(ref_x[0], ref_x[1], atol=1e-6)  # gaits differ
+    # stage_params without prev_stage_params skips the reset, as the
+    # reference does: the same tick as one whose previous contact never
+    # flipped
+    a, _ = tm.step(tc, t, tt, stage_params=_stack_sp(sps))
+    b, _ = tm.step(tc, t, tt, stage_params=_stack_sp(sps),
+                   prev_stage_params=_stack_sp(sps))
+    torch.testing.assert_close(a.x_init, b.x_init, rtol=0, atol=0)
+    assert not torch.equal(a.x_init, out.x_init)
+
+
+@pytest.mark.parametrize("field", ["precision", "assemble_precision"])
+def test_admm_config_precision_fields(field):
+    """The reference's precision fields: "highest" is accepted (bench.py
+    passes both); anything else raises, by the port's f32-only rule."""
+    cfg = T.ADMMConfig(precision="highest", assemble_precision="highest")
+    assert (cfg.precision, cfg.assemble_precision) == ("highest", "highest")
+    for bad in ("high", "default", "BF16_BF16_F32_X3"):
+        with pytest.raises(ValueError, match="float32 only"):
+            T.ADMMConfig(**{field: bad})
+    from tpu_locoman_torch.solver import qp as tqp
+    with pytest.raises(ValueError, match="float32 only"):
+        tqp._check_config(cfg._replace(**{field: "high"}))

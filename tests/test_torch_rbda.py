@@ -145,3 +145,35 @@ def test_integrate_tangent_map_matches_jax_ad():
                                np.broadcast_to(np.eye(jrob.model.nj),
                                                (q.shape[0], 12, 12)),
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ROBOTS)
+def test_forward_and_plain_pass_use_device_constants_exactly(name):
+    """forward_quantities and derivative_pass_plain read the tree's index
+    constants from model.tensors (no copy from the host per call): bit for
+    bit the results they gave with numpy indexes and a fresh gravity
+    tensor per call."""
+    _, trob, q, v, a, ee, f = _setup(name, seed=6)
+    m = trob.model
+    args = (torch.tensor(q), torch.tensor(v), torch.tensor(a), ee,
+            torch.tensor(f))
+
+    def run():
+        fq = trd.forward_quantities(m, *args)
+        return fq, trd.derivative_pass_plain(m, fq, *args[1:])
+
+    fq, out = run()
+    T = m.tensors("cpu")
+    host = dict(T, dof_link=m.dof_link(), DM=T["anc"][m.dof_link()],
+                g_spatial=torch.tensor([0.0, 0.0, tr.GRAVITY, 0.0, 0.0, 0.0]))
+    tensors = m.tensors
+    m.tensors = lambda device: host
+    try:
+        fq0, out0 = run()
+    finally:
+        m.tensors = tensors
+    for k in fq:
+        assert torch.equal(fq[k], fq0[k]), k
+    for o, o0 in zip(out, out0):
+        assert torch.equal(o, o0)
+    assert T["dof_link"].dtype == torch.int64

@@ -12,6 +12,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+GRAVITY = 9.81
+
 
 @dataclass
 class FrameHost:
@@ -80,7 +82,10 @@ class RobotModel:
         return np.array([0] * 6 + list(range(1, self.n_links)), dtype=np.int64)
 
     def tensors(self, device):
-        """Float32 copies of the numeric arrays on ``device`` (cached)."""
+        """Float32 copies of the numeric arrays on ``device`` (cached), and
+        the tree's index constants, so that no call copies from the host:
+        ``dof_link`` (nv,) int64, ``DM`` = ``anc[dof_link]`` (nv, nv) and
+        the spatial gravity acceleration ``g_spatial`` (6,)."""
         device = torch.device(device)
         cache = self.__dict__.setdefault("_tensor_cache", {})
         key = str(device)
@@ -103,6 +108,9 @@ class RobotModel:
                 "axis_skew": K,
                 "axis_skew2": K @ K,
                 "anc": f32(self.ancestry_mask()),
+                "dof_link": torch.as_tensor(self.dof_link(), device=device),
+                "DM": f32(self.ancestry_mask()[self.dof_link()]),
+                "g_spatial": f32([0.0, 0.0, GRAVITY, 0.0, 0.0, 0.0]),
             }
         return cache[key]
 

@@ -198,20 +198,30 @@ class MPC:
                                              device=self.device))
 
     def step(self, carry, t_current, base_vel_des, ext_force_des=None,
-             arm_vel_des=None):
+             arm_vel_des=None, stage_params=None, prev_stage_params=None):
         """One MPC tick for every scenario; t_current is shared (scalar) or
-        per scenario (B,)."""
+        per scenario (B,).
+
+        ``stage_params`` (a (B, N, ...) ``StageParams``) overrides the
+        generated schedules, e.g. to give each scenario of a batch its own
+        gait; the flip reset then reads the previous contact from
+        ``prev_stage_params``, and is skipped when that is not given."""
         B = carry.x_init.shape[0]
         t = _scenario_time(t_current, B, self.device)
         shared = self.make_shared(carry.x_init, base_vel_des, ext_force_des,
                                   arm_vel_des, tau_prev=carry.tau_prev)
-        sp = self.make_stage_params(t)
+        sp = self.make_stage_params(t) if stage_params is None else stage_params
         Z = self.warm_start_Z(carry.solver_state.Z, sp, shared)
         na = self.form.na_opt
-        if self.flip_reset and na > 0:
+        if prev_stage_params is not None:
+            prev = prev_stage_params.contact
+        elif stage_params is None:
+            prev = self.make_stage_params(t - self.dt_min).contact
+        else:
+            prev = None
+        if self.flip_reset and na > 0 and prev is not None:
             # zero the acceleration slots of nodes whose contact state
             # flipped since the previous tick
-            prev = self.make_stage_params(t - self.dt_min).contact
             flipped = (sp.contact != prev).any(-1)
             node_mask = torch.cat([flipped, flipped.new_zeros(B, 1)], 1)
             ndx = self.form.ndx

@@ -16,8 +16,7 @@ each step a batched tensor op over every leading dimension. Free-flyer
 import torch
 
 from . import lie
-
-GRAVITY = 9.81
+from .model import GRAVITY  # noqa: F401  (re-exported)
 
 
 def mv(M, x):
@@ -158,7 +157,7 @@ def rnea(model, q, v, a, ee_frames=(), forces_world=None):
     R_li, p_li = _joint_transforms(model, q)
     zeros3 = torch.zeros_like(v[..., :3])
     R0 = lie.quat_to_matrix(q[..., 3:7])
-    g = torch.tensor([0.0, 0.0, GRAVITY], dtype=q.dtype, device=q.device)
+    g = T["g_spatial"][:3]
     R_w = [R0]
     v_loc = [v[..., :6]]
     a_loc = [torch.cat([mv(R0.transpose(-1, -2), g), zeros3], -1)

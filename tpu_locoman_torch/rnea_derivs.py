@@ -11,18 +11,14 @@ Split of the work, as on the TPU: the cheap O(n*6) forward quantities
 body forces, force arms) are computed here in plain batched torch; the
 O(n*nv*6) derivative pass runs in ``csrc/rnea_derivs.cu``.
 
-What bounds it on an H100: latency and occupancy. At the flagship shape
-(B = 512 scenarios x 14 nodes = 7168 elements, nv = 24, n = 19 links) the
-pass is about 1 GFLOP of short dependent 6-vector algebra with no large
-contraction, far from the tensor cores' regime, and its true input/output
-traffic is ~80 MB. The kernel keeps every (link, column) intermediate of
-one element in shared memory (~45 KB), so none of the ~10 GB of
-(n, nv, 6, B) temporaries that the plain version streams through device
-memory are ever written; one CTA per element gives 7168 CTAs to fill the
-132 SMs, and threads run over (link, column) pairs. The ancestry
-contractions are direct masked sums over the 19 links / 24 dofs (the tree
-is passed as a 0/1 ancestry mask and a dof->link map, so one build serves
-every robot).
+What bounds it on an H100: at the flagship shape (B = 512 scenarios x 14
+nodes = 7168 elements, nv = 24, n = 19 links) the bytes, ~106 MB of inputs
+and outputs; at accurate batch 1's B = 14, latency. The kernel works on the
+live (link, column) pairs of the tree only, as tree recursions, from a
+table built here once per robot (``tree_table``, ``pack_table``); every
+intermediate stays in shared memory; one CTA per element, of two warps at
+large B and of eight at small B (``lanes_per_element``). See the source
+note in ``csrc/rnea_derivs.cu``.
 
 ``derivative_pass`` is the kernel's wrapper: it takes the plain version
 only for CPU tensors; on a CUDA tensor it launches the kernel or raises.
@@ -30,12 +26,13 @@ only for CPU tensors; on a CUDA tensor it launches the kernel or raises.
 """
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from . import rbda
-from .rbda import GRAVITY, cross, motion_cross, motion_cross_star
+from .rbda import cross, motion_cross, motion_cross_star
 
 #: kernel launches made by ``derivative_pass`` (the CUDA path only)
 launches = 0
@@ -48,18 +45,15 @@ def forward_quantities(model, q, v, a, ee_frames=(), forces_world=None):
     Vl, A, Iv, IA, f (n, 6) with f WITHOUT the external forces, sdot
     (nv, 6), and pf (n_frames, 3) frame positions."""
     T = model.tensors(q.device)
-    anc = T["anc"]
-    dof_link = model.dof_link()
+    anc, dof_link = T["anc"], T["dof_link"]
     R_w, p_w = rbda.fk(model, q)
     Sw = rbda.world_motion_axes(model, R_w, p_w)
     Iw = rbda.world_inertias(model, R_w, p_w)
     sv = Sw * v[..., None]
     Vl = torch.einsum("nm,bmd->bnd", anc, sv)
     sdot = motion_cross(Vl[:, dof_link], Sw)
-    g_vec = torch.tensor([0.0, 0.0, GRAVITY, 0.0, 0.0, 0.0],
-                         dtype=q.dtype, device=q.device)
     sa = Sw * a[..., None] + sdot * v[..., None]
-    A = torch.einsum("nm,bmd->bnd", anc, sa) + g_vec
+    A = torch.einsum("nm,bmd->bnd", anc, sa) + T["g_spatial"]
     Iv = rbda.mv(Iw, Vl)
     IA = rbda.mv(Iw, A)
     f = IA + motion_cross_star(Vl, Iv)
@@ -84,9 +78,7 @@ def derivative_pass_plain(model, fq, v, a, ee_frames=(), forces_world=None):
     world-frame derivation of ``rbda.rnea_derivatives`` as masked einsums,
     from the forward quantities ``fq``."""
     T = model.tensors(v.device)
-    anc = T["anc"]
-    dof_link = model.dof_link()
-    DM = anc[dof_link]
+    anc, dof_link, DM = T["anc"], T["dof_link"], T["DM"]
     AL = anc[None, :, :, None]  # (1, n, nv, 1)
     Sw, Iw, Vl, A = fq["Sw"], fq["Iw"], fq["Vl"], fq["A"]
     Iv, IA, f, sdot = fq["Iv"], fq["IA"], fq["f"], fq["sdot"]
@@ -151,21 +143,163 @@ def derivative_pass_plain(model, fq, v, a, ee_frames=(), forces_world=None):
     return outs + (dtau_df,) if dtau_df is not None else outs
 
 
+#: longest root-to-link path the kernel takes, root included (csrc MAXD)
+MAX_DEPTH = 8
+
+
+class TreeTable(NamedTuple):
+    """The kinematic tree as the kernel walks it. Links are in depth-first
+    order (``parent[i] < i`` and every subtree a range), so the subtree of
+    link L is the links ``[lo[L], hi[L])``; dof j is carried by link
+    ``dof_link[j]`` and moves exactly the links of its subtree."""
+
+    parent: np.ndarray  # (n,)
+    depth: np.ndarray  # (n,)
+    lo: np.ndarray  # (n,)
+    hi: np.ndarray  # (n,)
+    path: np.ndarray  # (n, MAX_DEPTH) links from the root to i, -1 after
+    dof_link: np.ndarray  # (nv,)
+    # live (link i, column j) pairs, column by column, links ascending:
+    # the kernel's storage order; column j's start in it
+    pairs: np.ndarray  # (np, 2)
+    col_off: np.ndarray  # (nv,)
+    # live (dof m, column j) pairs, the same way; (m, j) at wcol_off[j] + m
+    wpairs: np.ndarray  # (nw, 2)
+    wcol_off: np.ndarray  # (nv,)
+    # live outputs (k, j, link whose subtree the contraction sums)
+    outs: np.ndarray  # (no, 3)
+
+
+def tree_table(parent):
+    """The TreeTable of a tree given by its parent array (``parent[0]`` is
+    the free-flyer base). Raises unless ``parent[i] < i`` and every subtree
+    is a contiguous range of links."""
+    n = len(parent)
+    if n > 255 or any(not 0 <= parent[i] < i for i in range(1, n)):
+        raise ValueError("the RNEA derivative kernel needs parent[i] < i "
+                         "and at most 255 links")
+    depth = np.zeros(n, np.int32)
+    path = np.full((n, MAX_DEPTH), -1, np.int32)
+    anc = np.eye(n, dtype=bool)  # anc[i, L]: L is i or an ancestor of i
+    for i in range(1, n):
+        depth[i] = depth[parent[i]] + 1
+        anc[i] |= anc[parent[i]]
+    if depth.max() >= MAX_DEPTH:
+        raise ValueError(f"the RNEA derivative kernel takes trees of depth "
+                         f"< {MAX_DEPTH}")
+    lo = np.arange(n, dtype=np.int32)
+    hi = lo + anc.sum(0).astype(np.int32)
+    for L in range(n):
+        if not anc[L:hi[L], L].all():
+            raise ValueError(f"the subtree of link {L} is not a contiguous "
+                             f"range of links: order the links depth first")
+        path[L, :depth[L] + 1] = np.flatnonzero(anc[L])
+    dof_link = np.array([0] * 6 + list(range(1, n)), np.int32)
+    nv = len(dof_link)
+    pairs, col_off, wpairs, wcol_off = [], [], [], []
+    for j in range(nv):
+        L = dof_link[j]
+        col_off.append(len(pairs))
+        pairs += [(i, j) for i in range(lo[L], hi[L])]
+        dofs = [m for m in range(nv) if lo[L] <= dof_link[m] < hi[L]]
+        wcol_off.append(len(wpairs) - dofs[0])
+        wpairs += [(m, j) for m in dofs]
+    outs = []
+    for k in range(nv):
+        for j in range(nv):
+            lk, lj = dof_link[k], dof_link[j]
+            if anc[lk, lj]:
+                outs.append((k, j, lk))
+            elif anc[lj, lk]:
+                outs.append((k, j, lj))
+    i32 = lambda x: np.asarray(x, np.int32)  # noqa: E731
+    return TreeTable(i32(parent), depth, lo, hi, path, dof_link, i32(pairs),
+                     i32(col_off), i32(wpairs), i32(wcol_off), i32(outs))
+
+
+def pack_table(tab, ee_joint):
+    """The int32 table the kernel reads. Sections, in order: lo (n), hi
+    (n), dof_link (nv), each force frame's joint (nfr), lvl_off (MAX_DEPTH
+    + 1: where the pairs with children of each link depth start), zeros to
+    a multiple of 4; then one record per live pair (4 ints: i | j << 8 |
+    count << 16 | base << 24, the links of its walk one byte each in two
+    ints, and w's offset for column j), per live pair with children (4
+    ints: its index | count << 16, then its children's pair offsets, one
+    byte each), per live (dof, column) pair (2 ints: m | j << 8 | link(m)
+    << 16, the pair index of (link(m), j)), per live output (2 ints: k |
+    j << 8 | link(k) << 16 | [dof j moves link(k)] << 24, the pair index
+    of (its subtree's link, j) | the subtree's size << 16), and last a
+    bitmask of the live outputs (bit k * nv + j)."""
+    nv = len(tab.dof_link)
+    pairs = np.zeros((len(tab.pairs), 4), np.int64)
+    for p, (i, j) in enumerate(tab.pairs):
+        L = tab.dof_link[j]
+        base = int(L == 0)
+        walk = tab.path[i, tab.depth[L] + base:tab.depth[i] + 1]
+        code = sum(int(link) << 8 * c for c, link in enumerate(walk))
+        pairs[p] = (i | j << 8 | len(walk) << 16 | base << 24,
+                    code & 0xFFFFFFFF, code >> 32, tab.wcol_off[j])
+    pair_of = {(i, j): p for p, (i, j) in enumerate(tab.pairs)}
+    children = [np.flatnonzero(tab.parent == i) for i in range(len(tab.lo))]
+    if max(len(c) for c in children) > 12:
+        raise ValueError("the RNEA derivative kernel takes links with at "
+                         "most 12 children")
+    sub, lvl_off = [], []
+    for d in range(MAX_DEPTH):
+        lvl_off.append(len(sub))
+        for p, (i, j) in enumerate(tab.pairs):
+            if tab.depth[i] != d or not len(children[i]):
+                continue
+            words = np.zeros(12, np.int64)
+            words[:len(children[i])] = children[i] - i
+            sub.append([p | len(children[i]) << 16]
+                       + list((words.reshape(3, 4) << 8 * np.arange(4)).sum(1)))
+    lvl_off.append(len(sub))
+    head = np.concatenate([tab.lo, tab.hi, tab.dof_link,
+                           np.asarray(ee_joint, np.int32), lvl_off])
+    head = np.concatenate([head, np.zeros(-len(head) % 4, np.int32)])
+    w = [(m | j << 8 | tab.dof_link[m] << 16, pair_of[tab.dof_link[m], j])
+         for m, j in tab.wpairs]
+    outs = [(k | j << 8 | tab.dof_link[k] << 16
+             | int(L == tab.dof_link[k]) << 24,
+             pair_of[L, j] | (tab.hi[L] - tab.lo[L]) << 16)
+            for k, j, L in tab.outs]
+    live = np.zeros(-(-nv * nv // 32) * 32, np.int64)
+    live[tab.outs[:, 0] * nv + tab.outs[:, 1]] = 1
+    mask = (live.reshape(-1, 32) << np.arange(32)).sum(1)
+    words = np.concatenate([head, pairs.ravel(), np.ravel(sub), np.ravel(w),
+                            np.ravel(outs), mask])
+    return words.astype(np.uint32).view(np.int32)
+
+
 def _topology(model, ee_frames, device):
+    """(TreeTable, the packed table on ``device``), cached per robot and
+    force frames beside the model's tensors."""
     cache = model.tensors(device)
     key = ("_k2_topo", tuple(ee_frames))
     if key not in cache:
-        parent = model.parent
-        if any(parent[i] >= i for i in range(1, model.n_links)):
-            raise ValueError("rnea_derivatives needs parent[i] < i")
-        ee_joint = np.array([model.frames[fn].parent_joint for fn in ee_frames]
-                            or [0], dtype=np.int32)
-        cache[key] = (
-            cache["anc"].contiguous(),
-            torch.as_tensor(model.dof_link().astype(np.int32), device=device),
-            torch.as_tensor(ee_joint, device=device),
-        )
+        if "_k2_tree" not in cache:
+            cache["_k2_tree"] = tree_table(model.parent)
+        tab = cache["_k2_tree"]
+        ee_joint = [model.frames[fn].parent_joint for fn in ee_frames]
+        cache[key] = (tab, torch.as_tensor(pack_table(tab, ee_joint),
+                                           device=device))
     return cache[key]
+
+
+_sm_count = {}  # SMs per CUDA device index
+
+
+def lanes_per_element(B, device):
+    """Threads per element of the launch: two warps (up to 10 elements per
+    SM, as shared memory allows) once B gives every SM four elements or
+    more, else eight warps, so that a small batch (accurate mode's 14)
+    spreads each element's pairs over a whole SM."""
+    index = torch.device(device).index or 0
+    if index not in _sm_count:
+        _sm_count[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return 64 if B >= 4 * _sm_count[index] else 256
 
 
 def _check(x, shape, name):
@@ -181,7 +315,7 @@ def _launch(model, fq, v, a, ee_frames, forces_world):
     global launches
     B, nv, n = v.shape[0], model.nv, model.n_links
     nfr = len(ee_frames)
-    anc, dof_link, ee_joint = _topology(model, ee_frames, v.device)
+    tab, topo = _topology(model, ee_frames, v.device)
     ins = {k: fq[k].contiguous() for k in ("Sw", "Iw", "sdot", "Vl", "A",
                                            "Iv", "IA", "f", "pf")}
     v, a = v.contiguous(), a.contiguous()
@@ -202,11 +336,12 @@ def _launch(model, fq, v, a, ee_frames, forces_world):
     p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     stream = torch.cuda.current_stream(v.device).cuda_stream
     rc = load().rnea_derivs_launch(
-        p(anc), p(dof_link), p(ee_joint),
-        p(ins["Sw"]), p(ins["Iw"]), p(v), p(a), p(ins["sdot"]),
+        p(topo), p(ins["Sw"]), p(ins["Iw"]), p(v), p(a), p(ins["sdot"]),
         p(ins["Vl"]), p(ins["A"]), p(ins["Iv"]), p(ins["IA"]), p(ins["f"]),
         p(ins["pf"]), p(fw), p(dq), p(dv), p(da), p(df),
-        ctypes.c_int(B), ctypes.c_int(n), ctypes.c_int(nv), ctypes.c_int(nfr),
+        *(ctypes.c_int(x) for x in (
+            B, n, nv, nfr, len(tab.pairs), len(tab.wpairs), len(tab.outs),
+            lanes_per_element(B, v.device))),
         ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"rnea_derivs kernel launch failed: CUDA error {rc}")

@@ -31,13 +31,16 @@ from .fac_whole import factorize_whole
 FACTORIZERS = ("auto", "cholinv", "cholinv_pb", "pallas", "babe", "babe_pb")
 
 
-class ADMMConfig(NamedTuple):
+class _ADMMFields(NamedTuple):
     iters: int = 100
     rho: float = 2e-2
     sigma: float = 1e-6
     alpha: float = 1.4
     scaling_iters: int = 0
     eq_boost: float = 1e3
+    # matmul precision of the QP's linear algebra and of its assembly;
+    # the port runs every product in full float32, so only "highest"
+    precision: str = "highest"
     # "cholinv_pb" factors each node block (s <= 112) in one launch of
     # kernel K1 on CUDA tensors, and by the recursion with plain leaves on
     # CPU tensors; "cholinv" runs the recursion in plain torch on any
@@ -48,6 +51,7 @@ class ADMMConfig(NamedTuple):
     # (TF32 is off for the solve).
     factorizer: str = "cholinv_pb"
     chol_base: int = 16
+    assemble_precision: str = "highest"
     matvec_dtype: str = "float32"
     factor_dtype: str = "float32"
     # equality polish (accurate mode): after the main sweeps, refactorize
@@ -55,6 +59,27 @@ class ADMMConfig(NamedTuple):
     # more sweeps
     polish_iters: int = 0
     polish_boost: float = 100.0
+
+
+class ADMMConfig(_ADMMFields):
+    """The ADMM settings, with the reference's fields; a precision other
+    than "highest" raises."""
+
+    __slots__ = ()
+
+    def __new__(cls, *args, **kwargs):
+        cfg = super().__new__(cls, *args, **kwargs)
+        _check_precision(cfg)
+        return cfg
+
+
+def _check_precision(cfg):
+    for name in ("precision", "assemble_precision"):
+        if getattr(cfg, name) != "highest":
+            raise ValueError(
+                f"ADMMConfig.{name}={getattr(cfg, name)!r}: the port computes "
+                f"in float32 only, with no TF32 or bf16 passes, so only "
+                f"\"highest\" is accepted")
 
 
 class BlockTridiagFactor(NamedTuple):
@@ -74,6 +99,7 @@ class QPWork(NamedTuple):
 
 
 def _check_config(cfg):
+    _check_precision(cfg)  # also for a config made by _replace
     if cfg.scaling_iters > 0:
         raise NotImplementedError(
             "ADMMConfig.scaling_iters > 0 is not ported yet (ROADMAP queue 1, "
