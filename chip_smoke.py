@@ -4,9 +4,11 @@
     python3 chip_smoke.py                  # the whole check, a few minutes
                                            # on an H100
     python3 chip_smoke.py --profile FILE   # also write torch.profiler tables
-                                           # of three flagship ticks to FILE
-                                           # and of three accurate ones to
-                                           # FILE.accurate
+                                           # of three flagship ticks to FILE,
+                                           # of three accurate ones to
+                                           # FILE.accurate and of three
+                                           # whole_body_aba ones to FILE.aba,
+                                           # after every timed phase
 
 Phases, one line each (any failure raises; exit code non-zero):
  1. device: nvidia-smi name and power limit, torch and CUDA versions;
@@ -34,7 +36,18 @@ Phases, one line each (any failure raises; exit code non-zero):
     KKT blocks against a float64 solve, beside the plain f32 "cholinv";
 12. replay of the accurate JAX golden fixture
     tests/data/torch_golden_b2g_n14_accurate.json with "pallas";
-13. one JSON line with each kernel's error, times, bound and launch count.
+13. rbda.aba_derivatives (one K1 and one K2 launch) against its plain
+    route on the card, B2G at the flat batch of the whole_body_aba path
+    (7168) with forces; the identity aba(q, v, rnea(q, v, a, f), f) = a;
+    K1's device ms at that path's mass-matrix shape (7168, 24);
+14. the whole_body_aba path: B2G + Z1 whole_body_aba, N=14, the hot config,
+    batch 512 — 2 warm-up and 10 timed ticks, then one MPC.retract, with
+    the launch counts of each;
+15. replay of the JAX golden fixture
+    tests/data/torch_golden_b2g_n14_aba.json (whole_body_aba);
+16. whole_body_acc, centroidal_acc and centroidal_vel on B2G N=14, batch 8,
+    3 ticks each, and whole_body_acc's kernel path against its plain path;
+17. one JSON line with each kernel's error, times, bound and launch count.
 Kernel times come in two kinds: device ms, the device's time for one
 call from a CUDA-graph replay of 20 calls (what ranks and bounds a
 kernel), and call ms, the median host-inclusive time of one call between
@@ -44,6 +57,7 @@ script exits non-zero before printing any result. It never imports JAX.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -57,6 +71,10 @@ GOLDEN_ACC = os.path.join(ROOT, "tests", "data",
 K1_TOL = 1e-4  # max |kernel - plain| / (max |plain| + 1), f32 roundoff
 K2_TOL = 2e-4  # the same normalization tests/test_pallas_rbda.py uses
 K3_TOL = 1e-4  # as K1, on Linv, W, V and one solve_factorized
+# aba(q, v, rnea(q, v, a, f), f) against a, normalized by max |a| + 1: f32
+# roundoff times the condition of M; phase 13 prints 1.09e-3 on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md), so about 5x that
+ABA_ID_TOL = 5e-3
 # the solve error of the kernels' factorizations may exceed the plain f32
 # recursion's ("cholinv") by at most this factor (phase 11)
 SOLVE_ERR_RATIO = 1.25
@@ -70,12 +88,18 @@ K3_FIRST_MS = {(15, 105, 1): 3.8687, (15, 105, 512): 15.6523,
 # (PERF.md), by B2G flat batch
 K2_FIRST_MS = {7168: (0.6427, 0.6460), 14: (0.0270, 0.0739)}
 # K1's shapes on the path: the flagship's node (s = 105 at batch 512), the
-# eq-projection node (110), Go2's (78), and the old leaf shape (14)
-K1_SHAPES = ((512, 105), (512, 110), (5, 78), (512, 14))
+# eq-projection node (110), Go2's (78), the old leaf shape (14) and the
+# whole_body_aba node (81)
+K1_SHAPES = ((512, 105), (512, 110), (5, 78), (512, 14), (512, 81))
 VIOL_GATE = 0.35  # shipping quality gate on the mean max_violation
 ACC_GATE = 1e-3  # the accurate preset's contract on the mean max_violation
 ACC_X_TOL = 5e-3  # accurate golden: x (see replay_golden)
 ACC_VIOL_TOL = 2e-4  # accurate golden: per tick |dviol| (see replay_golden)
+ABA_X_TOL = 3e-5  # whole_body_aba golden: x (see replay_golden)
+ABA_VIOL_REL = 0.03  # whole_body_aba golden: per tick |dviol| / viol
+ABA_MEAN_REL = 0.01  # whole_body_aba golden: rollout mean violation
+GOLDEN_ABA = os.path.join(ROOT, "tests", "data",
+                          "torch_golden_b2g_n14_aba.json")
 # NVIDIA's data sheet, H100 SXM: memory rate, and the f32 rate outside the
 # tensor cores (the solver runs no TF32)
 H100_BYTES_PER_S = 3.35e12
@@ -164,9 +188,11 @@ def nonfinite_pattern(torch, M):
                 int(torch.isfinite(M[m]).sum())) for k, m in parts.items()}
 
 
-def hot_mpc(T, device, factorizer, nodes=14, ship=None):
+def hot_mpc(T, device, factorizer, nodes=14, ship=None,
+            dynamics="whole_body_rnea"):
     """B2G MPC with the hot config (or, with ship["eq_projection"], the
-    accurate one) read from a SHIPPING.json-style dict."""
+    accurate one) read from a SHIPPING.json-style dict, for the formulation
+    ``dynamics``."""
     ship = ship or {}
     robot = T.B2G()
     robot.set_gait_sequence("trot", 0.8)
@@ -176,7 +202,7 @@ def hot_mpc(T, device, factorizer, nodes=14, ship=None):
         eq_projection=int(ship.get("eq_projection", 0)),
         admm=T.ADMMConfig(iters=int(ship.get("admm_iters", 10)),
                           factorizer=factorizer))
-    return T.MPC(robot, dynamics="whole_body_rnea", nodes=nodes,
+    return T.MPC(robot, dynamics=dynamics, nodes=nodes,
                  flip_reset=True, warm_shift=bool(ship.get("warm_shift", True)),
                  config=cfg, device=device)
 
@@ -217,20 +243,22 @@ def run_ticks(step, carry, target, dt, warm, timed):
             for s_ in stats["status"].tolist():
                 status[int(s_)] += 1
     return {"tick_ms": tick_ms, "viol_mean": float(np.mean(viol_ticks)),
-            "viol_worst": float(np.max(viol_ticks)), "status": status}
+            "viol_worst": float(np.max(viol_ticks)), "status": status,
+            "carry": carry}
 
 
-def run_flagship(dev, ship, batch, warm, timed):
-    """Drive the main path through its user entry points: MPC, then
-    batched_init and batched_step, ticking every scenario."""
+def run_flagship(dev, ship, batch, warm, timed, dynamics="whole_body_rnea"):
+    """Drive the main path (or another formulation's) through its user
+    entry points: MPC, then batched_init and batched_step, ticking every
+    scenario. Returns run_ticks' summary and the MPC."""
     import torch
 
     import tpu_locoman_torch as T
 
-    mpc = hot_mpc(T, dev, ship["factorizer"], ship=ship)
+    mpc = hot_mpc(T, dev, ship["factorizer"], ship=ship, dynamics=dynamics)
     targets = torch.tensor([0.2, 0, 0, 0, 0, 0], device=dev).repeat(batch, 1)
     return run_ticks(T.batched_step(mpc), T.batched_init(mpc, batch), targets,
-                     mpc.dt_min, warm, timed)
+                     mpc.dt_min, warm, timed), mpc
 
 
 def profile_ticks(step, carry, target, dt, path, ticks=3):
@@ -260,30 +288,43 @@ def profile_ticks(step, carry, target, dt, path, ticks=3):
             wall_ms)
 
 
-def compare_paths(dev, ship, batch=8, ticks=3):
+@contextlib.contextmanager
+def plain_kernels():
+    """Swap the plain versions in for K2 (``rnea_derivs.rnea_derivatives``,
+    which the formulations and rbda.aba_derivatives call) and for K1 where
+    ``qp.chol_inv`` hands it a whole block (ABA's mass matrix; the
+    "cholinv" factorizer never calls it)."""
+    from tpu_locoman_torch import rnea_derivs
+    from tpu_locoman_torch.solver import chol_base
+    from tpu_locoman_torch.solver import qp as tqp
+
+    saved = rnea_derivs.rnea_derivatives, tqp.chol_inv_node
+    rnea_derivs.rnea_derivatives = rnea_derivs.rnea_derivatives_plain
+    tqp.chol_inv_node = chol_base.chol_inv_node_plain
+    try:
+        yield
+    finally:
+        rnea_derivs.rnea_derivatives, tqp.chol_inv_node = saved
+
+
+def compare_paths(dev, ship, batch=8, ticks=3, dynamics="whole_body_rnea"):
     """The kernel path against the plain path (K1's and K2's plain
     versions swapped in) from the same carry: (max |dx|, max normalized
     |dZ|) over the ticks."""
     import torch
 
     import tpu_locoman_torch as T
-    from tpu_locoman_torch import rnea_derivs
-    from tpu_locoman_torch.ocp import transcribe
 
     tg = torch.zeros(batch, 6, device=dev)
     tg[:, 0] = torch.linspace(0.0, 0.3, batch, device=dev)
-    mk = hot_mpc(T, dev, "cholinv_pb", ship=ship)
-    mp = hot_mpc(T, dev, "cholinv", ship=ship)
+    mk = hot_mpc(T, dev, "cholinv_pb", ship=ship, dynamics=dynamics)
+    mp = hot_mpc(T, dev, "cholinv", ship=ship, dynamics=dynamics)
     ck = cp = T.batched_init(mk, batch)
-    orig = transcribe.rnea_derivatives
     ex = ez = 0.0
     for k in range(ticks):
         ck, _ = mk.step(ck, k * mk.dt_min, tg)
-        transcribe.rnea_derivatives = rnea_derivs.rnea_derivatives_plain
-        try:
+        with plain_kernels():
             cp, _ = mp.step(cp, k * mp.dt_min, tg)
-        finally:
-            transcribe.rnea_derivatives = orig
         ex = max(ex, float((ck.x_init - cp.x_init).abs().max()))
         zk, zp = ck.solver_state.Z, cp.solver_state.Z
         ez = max(ez, float((zk - zp).abs().max()) / (float(zp.abs().max()) + 1))
@@ -312,6 +353,16 @@ def replay_golden(dev, factorizer, path=GOLDEN):
     ACC_GATE on both sides and within ACC_VIOL_TOL absolute of the fixture,
     alpha and status equal.
 
+    whole_body_aba fixture (its setup's dynamics; B2G N=14, hot config,
+    batch 2, 5 ticks): JAX itself with "sequential" against the fixture's
+    "cholinv" lands within 9.7e-6 in x, 0.99% of each tick's max_violation
+    and 0.26% of the rollout mean (tools/make_torch_golden.py --dynamics
+    whole_body_aba --against). Held at about three times that,
+    as the accurate bounds are: x atol ABA_X_TOL, per tick |dviol| <=
+    ABA_VIOL_REL of the fixture's, rollout mean within ABA_MEAN_REL,
+    alpha and status equal. The port's plain path on the CPU lands within
+    3.7e-6 in x and 0.94% per tick.
+
     Returns (max x err, max violation err, mean violation rel err, ticks,
     batch)."""
     import numpy as np
@@ -323,10 +374,11 @@ def replay_golden(dev, factorizer, path=GOLDEN):
     gold = convert.load_golden(path)
     s = gold["setup"]
     accurate = s.get("eq_projection", 0) > 0
+    aba = s["dynamics"] == "whole_body_aba"
     mg = hot_mpc(T, dev, factorizer, nodes=s["nodes"], ship={
         "ls_trials": s["ls_trials"], "corrector": s["corrector"],
         "admm_iters": s["admm_iters"], "warm_shift": s["warm_shift"],
-        "eq_projection": s.get("eq_projection", 0)})
+        "eq_projection": s.get("eq_projection", 0)}, dynamics=s["dynamics"])
     cg = convert.carry_from_numpy(gold["init"], dev)
     tg = torch.tensor(gold["targets"], device=dev)
     gx = gv = 0.0
@@ -337,11 +389,13 @@ def replay_golden(dev, factorizer, path=GOLDEN):
         v = st["max_violation"].cpu().numpy()
         rv = ref["max_violation"]
         dv = np.abs(v - rv)
-        check(dx <= (ACC_X_TOL if accurate else 1e-3),
+        check(dx <= (ACC_X_TOL if accurate else ABA_X_TOL if aba else 1e-3),
               f"golden tick {k}: x err {dx}")
         if accurate:
             ok = (np.all(v <= ACC_GATE) and np.all(rv <= ACC_GATE)
                   and np.all(dv <= ACC_VIOL_TOL))
+        elif aba:
+            ok = np.all(dv <= ABA_VIOL_REL * np.abs(rv))
         else:
             ok = np.all(dv <= 0.4 * np.abs(rv) + 1e-3)
         check(ok, f"golden tick {k}: violation {v} vs {rv}")
@@ -354,7 +408,7 @@ def replay_golden(dev, factorizer, path=GOLDEN):
         refs.append(rv)
     mean_rel = abs(float(np.mean(vs)) / float(np.mean(refs)) - 1.0)
     if not accurate:
-        check(mean_rel <= 0.1,
+        check(mean_rel <= (ABA_MEAN_REL if aba else 0.1),
               f"golden rollout mean violation off by {mean_rel}")
     return gx, gv, mean_rel, len(gold["ticks"]), len(s["targets_vx"])
 
@@ -461,8 +515,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="FILE",
                     help="write torch.profiler tables of three flagship "
-                         "ticks to FILE and of three accurate single-robot "
-                         "ticks to FILE.accurate")
+                         "ticks to FILE, of three accurate single-robot "
+                         "ticks to FILE.accurate and of three whole_body_aba "
+                         "ticks to FILE.aba, after every timed phase")
     args = ap.parse_args()
 
     import torch
@@ -474,18 +529,25 @@ def main():
     import numpy as np
 
     import tpu_locoman_torch as T
-    from tpu_locoman_torch import _build, rnea_derivs
+    from tpu_locoman_torch import _build, rbda, rnea_derivs
     from tpu_locoman_torch.solver import chol_base, fac_whole
     from tpu_locoman_torch.solver import qp as tqp
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
+    clock = [time.time()]
+
+    def plog(msg):
+        """One phase's line, with the seconds since the previous one."""
+        now = time.time()
+        log(f"{msg}; {now - clock[0]:.1f} s")
+        clock[0] = now
 
     # ---- 1. device -------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    log(f"[1 device] nvidia-smi: {smi} | torch {torch.__version__} cuda "
+    plog(f"[1 device] nvidia-smi: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | devices {torch.cuda.device_count()}")
     check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmul is on")
 
@@ -494,7 +556,7 @@ def main():
     _build.load()
     regs = [ln.strip() for ln in _build.build_log.splitlines()
             if "registers" in ln or "Compiling entry" in ln]
-    log(f"[2 build] kernels built and loaded in {time.time() - t0:.1f} s "
+    plog(f"[2 build] kernels built and loaded in {time.time() - t0:.1f} s "
         f"(nvcc {_build.build_seconds:.1f} s); ptxas: {' | '.join(regs)}")
 
     # ---- 3. K1 against its plain version ---------------------------------
@@ -536,7 +598,8 @@ def main():
                    "plain": nonfinite_pattern(
                        torch, chol_base.chol_inv_node_plain(bad)[1])}
     k1_main = k1_rows[0]
-    log(f"[3 K1] chol_inv_node == plain for (B, s) in {K1_SHAPES}: max abs "
+    k1_81 = next(r for r in k1_rows if r["s"] == 81)
+    plog(f"[3 K1] chol_inv_node == plain for (B, s) in {K1_SHAPES}: max abs "
         f"err {k1_err:.3g} (normalized tol {K1_TOL}); NaN kept for a "
         f"non-SPD block (-I, s=105; NaN / inf / finite entries below, on "
         f"and above the diagonal: kernel {nan_pattern['kernel']}, plain "
@@ -601,7 +664,7 @@ def main():
         row["first"] = K2_FIRST_MS.get(B)
         k2_rows[B] = row
         del fq
-    log("[4 K2] rnea_derivatives == plain for B2G B in (7168, 14, 5) and Go2 "
+    plog("[4 K2] rnea_derivatives == plain for B2G B in (7168, 14, 5) and Go2 "
         f"B=7168, with and without forces: max abs err {k2_err:.3g} (tol "
         f"{K2_TOL}*(max+1)); B2G with forces, device ms / call ms: " + "; ".join(
             f"B={B} ({rnea_derivs.lanes_per_element(B, dev)} threads per "
@@ -617,7 +680,7 @@ def main():
         ship = json.load(fh)["bench_defaults"]
     batch, warm, timed = 512, 2, 20
     chol_base.launches = rnea_derivs.launches = fac_whole.launches = 0
-    fl = run_flagship(dev, ship, batch, warm, timed)
+    fl, _ = run_flagship(dev, ship, batch, warm, timed)
     k1_launches, k2_launches = chol_base.launches, rnea_derivs.launches
     ticks = warm + timed
     # one K1 launch per node of the one factorization per tick (N+1 = 15)
@@ -628,7 +691,7 @@ def main():
           f"violation mean {fl['viol_mean']} > {VIOL_GATE}")
     tick_ms = fl["tick_ms"]
     ms_mean = float(np.mean(tick_ms))
-    log(f"[5 flagship] B2G whole_body_rnea N=14 batch {batch} "
+    plog(f"[5 flagship] B2G whole_body_rnea N=14 batch {batch} "
         f"({ship['factorizer']}, admm {ship['admm_iters']}, corrector "
         f"{ship['corrector']}, ls {ship['ls_trials']}): {ms_mean:.2f} ms/tick "
         f"mean, {float(np.median(tick_ms)):.2f} p50, min {min(tick_ms):.2f}, "
@@ -638,28 +701,31 @@ def main():
         f"{VIOL_GATE}); status {fl['status']}; launches K1 {k1_launches} "
         f"K2 {k2_launches} over {ticks} ticks; host load average "
         f"{os.getloadavg()[0]:.2f} on {os.cpu_count()} cores")
-    if args.profile:
-        mpc = hot_mpc(T, dev, ship["factorizer"], ship=ship)
+
+    def batched_ticks(dynamics):
+        mpc = hot_mpc(T, dev, ship["factorizer"], ship=ship, dynamics=dynamics)
         targets = torch.tensor([0.2, 0, 0, 0, 0, 0], device=dev).repeat(
             batch, 1)
-        dev_ms, n_k, wall = profile_ticks(
-            T.batched_step(mpc), T.batched_init(mpc, batch), targets,
-            mpc.dt_min, args.profile)
-        log(f"[5b profile] three flagship ticks -> {args.profile}: device "
-            f"{dev_ms:.2f} ms/tick in {n_k:.0f} kernels; {wall:.2f} ms/tick "
-            f"under the profiler, {ms_mean:.2f} without (idle "
-            f"{100 * (1 - dev_ms / ms_mean):.1f}% of the unprofiled tick)")
+        return (T.batched_step(mpc), T.batched_init(mpc, batch), targets,
+                mpc.dt_min)
+
+    # (tag, what, file, unprofiled ms/tick, step arguments), profiled after
+    # every timed phase: a torch.profiler session leaves state behind in
+    # the process (it stopped recording device time after the first large
+    # profile), so no timed tick follows one
+    profiles = [("5b", "three flagship ticks", args.profile, ms_mean,
+                 lambda: batched_ticks("whole_body_rnea"))]
 
     # ---- 6. kernel path against plain path ---------------------------------
     ex, ez = compare_paths(dev, ship, batch=8, ticks=3)
     check(ex <= 1e-3 and ez <= 1e-3, f"kernel vs plain path: x {ex} Z {ez}")
-    log(f"[6 paths] kernel path == plain path on the card, batch 8, 3 "
+    plog(f"[6 paths] kernel path == plain path on the card, batch 8, 3 "
         f"ticks: x max abs err {ex:.3g} (tol 1e-3), Z normalized err "
         f"{ez:.3g} (tol 1e-3)")
 
     # ---- 7. JAX golden fixture -----------------------------------------------
     gx, gv, grel, n_ticks, n_b = replay_golden(dev, "cholinv_pb")
-    log(f"[7 golden] JAX fixture replayed ({n_ticks} ticks, batch {n_b}): x "
+    plog(f"[7 golden] JAX fixture replayed ({n_ticks} ticks, batch {n_b}): x "
         f"max abs err {gx:.3g} (tol 1e-3), violation max abs err {gv:.3g} "
         f"(tol 40% + 1e-3 per tick), rollout mean violation off by "
         f"{100 * grel:.2f}% (tol 10%), alpha and status equal")
@@ -700,7 +766,7 @@ def main():
     out = fac_whole.factorize_whole(bad, torch.zeros(2, 3, 10, 10, device=dev))
     check(torch.isnan(out.Linv[1, 2]).any() and torch.isfinite(out.Linv[0]).all(),
           "K3 must keep NaN for a non-SPD block")
-    log(f"[8 K3] factorize_whole == plain (Linv, W, V, solve) for (K, s) in "
+    plog(f"[8 K3] factorize_whole == plain (Linv, W, V, solve) for (K, s) in "
         f"((15, 105), (14, 110)), Bs in (1, 512): max abs err {k3_err:.3g} "
         f"(normalized tol {K3_TOL}); NaN kept for a non-SPD block; device "
         f"ms / call ms: " + "; ".join(
@@ -737,7 +803,7 @@ def main():
         check(bool(torch.isfinite(x.float()).all()), f"MPC.run: non-finite {k_}")
     run_viol = float(outs["max_violation"].mean())
     check(run_viol <= ACC_GATE, f"MPC.run violation mean {run_viol}")
-    log(f"[9 accurate] B2G whole_body_rnea N=14 batch 1, SQPConfig.accurate() "
+    plog(f"[9 accurate] B2G whole_body_rnea N=14 batch 1, SQPConfig.accurate() "
         f"with factorizer pallas: {ms_summary(acc['tick_ms'])}; max_violation "
         f"mean {acc['viol_mean']:.3g} worst tick {acc['viol_worst']:.3g} "
         f"(gate {ACC_GATE}); status {acc['status']}; launches K1 "
@@ -745,16 +811,15 @@ def main():
         f"{ticks} ticks; MPC.run(10): max_violation mean {run_viol:.3g}, "
         f"status {outs['status'].flatten().tolist()}, launches K1 "
         f"{run_launches[0]} K2 {run_launches[1]} K3 {run_launches[2]}")
-    if args.profile:
-        path = args.profile + ".accurate"
-        acc_ms = float(np.mean(acc["tick_ms"]))
-        dev_ms, n_k, wall = profile_ticks(
-            acc_mpc.step, acc_mpc.init_carry(1), target, acc_mpc.dt_min, path)
-        log(f"[9b profile] three accurate single-robot ticks -> {path}: "
-            f"device {dev_ms:.2f} ms/tick in {n_k:.0f} kernels; {wall:.2f} "
-            f"ms/tick under the profiler, {acc_ms:.2f} without (idle "
-            f"{100 * (1 - dev_ms / acc_ms):.1f}% of the unprofiled tick)")
     del acc_mpc
+
+    def accurate_ticks():
+        mpc = accurate_mpc(T, acc_cfg)
+        return mpc.step, mpc.init_carry(1), target, mpc.dt_min
+
+    profiles.append(("9b", "three accurate single-robot ticks",
+                     f"{args.profile}.accurate",
+                     float(np.mean(acc["tick_ms"])), accurate_ticks))
 
     # ---- 10. accurate mode at production batch --------------------------------
     chol_base.launches = rnea_derivs.launches = fac_whole.launches = 0
@@ -772,7 +837,7 @@ def main():
     check(prod["viol_mean"] <= ACC_GATE,
           f"accurate batch 512 violation mean {prod['viol_mean']}")
     prod_ms = float(np.mean(prod["tick_ms"]))
-    log(f"[10 accurate b512] config=\"accurate\" (cholinv_pb) batch 512: "
+    plog(f"[10 accurate b512] config=\"accurate\" (cholinv_pb) batch 512: "
         f"{ms_summary(prod['tick_ms'])}; {512e3 / prod_ms:.1f} solves/s; "
         f"max_violation mean {prod['viol_mean']:.3g} worst tick "
         f"{prod['viol_worst']:.3g} (gate {ACC_GATE}); status "
@@ -781,7 +846,7 @@ def main():
 
     # ---- 11. factorizers against each other -----------------------------------
     fz, fz_solve = compare_factorizers(dev, ship, ("pallas", "babe_pb"))
-    log("[11 factorizers] hot config batch 8, 3 ticks, against cholinv_pb: "
+    plog("[11 factorizers] hot config batch 8, 3 ticks, against cholinv_pb: "
         + "; ".join(f"{n} x max abs err {ex:.3g}, Z normalized err {ez:.3g}"
                     for n, (ex, ez) in fz.items()) + " (tol 1e-3 each); "
         "solve error on the run's KKT blocks against float64, worst tick: "
@@ -797,12 +862,156 @@ def main():
 
     # ---- 12. accurate JAX golden fixture -----------------------------------------
     gx, gv, _, n_ticks, n_b = replay_golden(dev, "pallas", GOLDEN_ACC)
-    log(f"[12 golden accurate] JAX fixture replayed with pallas ({n_ticks} "
+    plog(f"[12 golden accurate] JAX fixture replayed with pallas ({n_ticks} "
         f"ticks, batch {n_b}): x max abs err {gx:.3g} (tol {ACC_X_TOL}), violation "
         f"max abs err {gv:.3g} (tol {ACC_VIOL_TOL}, and <= {ACC_GATE} on "
         f"both sides), alpha and status equal")
 
-    # ---- 13. kernels ------------------------------------------------------------
+    # ---- 13. aba_derivatives: K1 and K2 at the ABA path's shapes -----------
+    rob = T.B2G()
+    m = rob.model
+    ee = tuple(rob.FOOT_FRAMES) + (rob.ext_force_frame,)
+    E = 512 * 14  # the whole_body_aba path's flat batch of nodes
+    q, v, a, r2 = k2_samples(np, rob, E, seed=13)
+    f = r2.standard_normal((E, 3 * len(ee))).astype(np.float32) * 50.0
+    qt, vt, at, ft = (torch.tensor(x, device=dev) for x in (q, v, a, f))
+    tau = rbda.rnea(m, qt, vt, at, ee, ft)
+    chol_base.launches = rnea_derivs.launches = 0
+    out = rbda.aba_derivatives(m, qt, vt, tau, ee, ft)
+    torch.cuda.synchronize()
+    aba_launches = (chol_base.launches, rnea_derivs.launches)
+    check(aba_launches == (1, 1),
+          f"aba_derivatives launched K1, K2 {aba_launches} times")
+    with plain_kernels():
+        ref = rbda.aba_derivatives(m, qt, vt, tau, ee, ft)
+    torch.cuda.synchronize()
+    aba_err = {}
+    for name, o, r in zip(("a", "da/dq", "da/dv", "da/dtau", "da/df"), out,
+                          ref):
+        e = float((o - r).abs().max())
+        scale = float(r.abs().max()) + 1.0
+        check(e <= K2_TOL * scale,
+              f"aba_derivatives {name}: {e} > {K2_TOL} * {scale}")
+        aba_err[name] = e / scale
+    id_err = float((out[0] - at).abs().max()) / (float(at.abs().max()) + 1.0)
+    check(id_err <= ABA_ID_TOL, f"aba(rnea(a)) - a: normalized {id_err}")
+    nv = m.nv
+    Mm = rbda.crba(m, qt) + 1e-6 * torch.eye(nv, device=dev)
+    o1, r1 = chol_base.chol_inv_node(Mm), chol_base.chol_inv_node_plain(Mm)
+    torch.cuda.synchronize()
+    k1_aba_err = float((o1 - r1).abs().max())
+    check(k1_aba_err <= K1_TOL * (float(r1.abs().max()) + 1.0),
+          f"K1 at ({E}, {nv}): {k1_aba_err}")
+    eye = torch.eye(nv, device=dev).expand(E, nv, nv)
+    k1_aba = {"B": E, "s": nv,
+              "kernel": times(torch, lambda: chol_base.chol_inv_node(Mm)),
+              "plain": times(torch,
+                             lambda: chol_base.chol_inv_node_plain(Mm), 10),
+              "library": times(torch, lambda: torch.linalg.solve_triangular(
+                  torch.linalg.cholesky_ex(Mm).L, eye, upper=False)),
+              "bound": bound(2 * Mm.numel() * 4, E * 2 * nv ** 3 / 3)}
+    aba_call = median_ms(torch, lambda: rbda.aba_derivatives(
+        m, qt, vt, tau, ee, ft), reps=10)
+    with plain_kernels():
+        aba_plain_call = median_ms(torch, lambda: rbda.aba_derivatives(
+            m, qt, vt, tau, ee, ft), reps=5)
+    del out, ref, Mm, o1, r1
+    plog(f"[13 aba_derivatives] B2G E={E} with forces, kernel route (K1 "
+        f"{aba_launches[0]}, K2 {aba_launches[1]} launches) == plain route, "
+        f"normalized err " + ", ".join(f"{k} {e:.3g}"
+                                       for k, e in aba_err.items())
+        + f" (tol {K2_TOL}); aba(q, v, rnea(q, v, a, f), f) - a normalized "
+        f"{id_err:.3g} (tol {ABA_ID_TOL}); call ms {aba_call:.4f} (plain "
+        f"route {aba_plain_call:.4f}); K1 at ({E}, {nv}) max abs err "
+        f"{k1_aba_err:.3g}, device ms / call ms: kernel "
+        f"{k1_aba['kernel'][0]:.4f} / {k1_aba['kernel'][1]:.4f}, plain "
+        f"{k1_aba['plain'][0]:.4f} / {k1_aba['plain'][1]:.4f}, cholesky_ex + "
+        f"solve_triangular {k1_aba['library'][0]:.4f} / "
+        f"{k1_aba['library'][1]:.4f}, bound {k1_aba['bound'][0]:.6f} "
+        f"({k1_aba['bound'][1]})")
+
+    # ---- 14. the whole_body_aba path -----------------------------------------
+    warm, timed = 2, 10
+    chol_base.launches = rnea_derivs.launches = fac_whole.launches = 0
+    ab, ab_mpc = run_flagship(dev, ship, batch, warm, timed,
+                              dynamics="whole_body_aba")
+    ab_launches = (chol_base.launches, rnea_derivs.launches,
+                   fac_whole.launches)
+    ticks = warm + timed
+    # K1 per tick: the 15 node blocks of the factorization, and ABA's mass
+    # matrix once in linearize, once for all line-search trials and once
+    # in the corrector's evaluation
+    check(ab_launches == (18 * ticks, ticks, 0),
+          f"whole_body_aba launches K1, K2, K3 = {ab_launches}")
+    check(ab["viol_mean"] <= VIOL_GATE,
+          f"whole_body_aba violation mean {ab['viol_mean']} > {VIOL_GATE}")
+    chol_base.launches = rnea_derivs.launches = 0
+    ret = ab_mpc.retract(ab["carry"].solver_state.Z, ab["carry"].x_init)
+    torch.cuda.synchronize()
+    ret_launches = (chol_base.launches, rnea_derivs.launches)
+    check(ret_launches == (1, 0), f"retract launches K1, K2 {ret_launches}")
+    for k_, x in ret.items():
+        check(x.shape[:2] == (batch, 14) and bool(torch.isfinite(x).all()),
+              f"retract: {k_} {tuple(x.shape)} or non-finite")
+    ab_ms = float(np.mean(ab["tick_ms"]))
+    plog(f"[14 whole_body_aba] B2G whole_body_aba N=14 batch {batch} "
+        f"({ship['factorizer']}, admm {ship['admm_iters']}, corrector "
+        f"{ship['corrector']}, ls {ship['ls_trials']}): "
+        f"{ms_summary(ab['tick_ms'])}; {batch * 1e3 / ab_ms:.1f} solves/s; "
+        f"max_violation mean {ab['viol_mean']:.4f} worst tick "
+        f"{ab['viol_worst']:.4f} (gate {VIOL_GATE}); status {ab['status']}; "
+        f"launches K1 {ab_launches[0]} K2 {ab_launches[1]} K3 "
+        f"{ab_launches[2]} over {ticks} ticks; MPC.retract: K1 "
+        f"{ret_launches[0]} K2 {ret_launches[1]}, finite")
+    del ab_mpc, ret
+    profiles.append(("14b", "three whole_body_aba ticks",
+                     f"{args.profile}.aba", ab_ms,
+                     lambda: batched_ticks("whole_body_aba")))
+
+    # ---- 15. whole_body_aba JAX golden fixture ---------------------------------
+    gx, gv, grel, n_ticks, n_b = replay_golden(dev, "cholinv_pb", GOLDEN_ABA)
+    plog(f"[15 golden aba] JAX fixture replayed ({n_ticks} ticks, batch "
+        f"{n_b}): x max abs err {gx:.3g} (tol {ABA_X_TOL}), violation max "
+        f"abs err {gv:.3g} (tol {100 * ABA_VIOL_REL:.0f}% per tick), rollout "
+        f"mean violation off by {100 * grel:.2f}% (tol "
+        f"{100 * ABA_MEAN_REL:.0f}%), alpha and status equal")
+
+    # ---- 16. the other three formulations --------------------------------------
+    tg8 = torch.zeros(8, 6, device=dev)
+    tg8[:, 0] = torch.linspace(0.0, 0.3, 8, device=dev)
+    others = []
+    for name, k2_per_tick in (("whole_body_acc", 1), ("centroidal_acc", 0),
+                              ("centroidal_vel", 0)):
+        chol_base.launches = rnea_derivs.launches = 0
+        mpc = hot_mpc(T, dev, "cholinv_pb", ship=ship, dynamics=name)
+        r = run_ticks(mpc.step, mpc.init_carry(8), tg8, mpc.dt_min, 0, 3)
+        launches = (chol_base.launches, rnea_derivs.launches)
+        check(launches == (15 * 3, k2_per_tick * 3),
+              f"{name} launches K1, K2 = {launches}")
+        ret = mpc.retract(r["carry"].solver_state.Z, r["carry"].x_init)
+        for k_, x in ret.items():
+            check(bool(torch.isfinite(x).all()), f"{name} retract: {k_}")
+        others.append(f"{name} max_violation mean {r['viol_mean']:.4f} worst "
+                      f"tick {r['viol_worst']:.4f}, status {r['status']}, "
+                      f"launches K1 {launches[0]} K2 {launches[1]}")
+    ex, ez = compare_paths(dev, ship, batch=8, ticks=3,
+                           dynamics="whole_body_acc")
+    check(ex <= 1e-3 and ez <= 1e-3,
+          f"whole_body_acc kernel vs plain path: x {ex} Z {ez}")
+    plog(f"[16 formulations] B2G N=14 batch 8, 3 ticks, hot config: "
+        + "; ".join(others) + f"; retract finite; whole_body_acc kernel "
+        f"path == plain path: x max abs err {ex:.3g} (tol 1e-3), Z "
+        f"normalized err {ez:.3g} (tol 1e-3)")
+
+    for tag, what, path, tick_ms, ticks_of in (profiles if args.profile
+                                                else []):
+        dev_ms, n_k, wall = profile_ticks(*ticks_of(), path)
+        plog(f"[{tag} profile] {what} -> {path}: device {dev_ms:.2f} ms/tick "
+             f"in {n_k:.0f} kernels; {wall:.2f} ms/tick under the profiler, "
+             f"{tick_ms:.2f} without (idle {100 * (1 - dev_ms / tick_ms):.1f}%"
+             f" of the unprofiled tick)")
+
+    # ---- 17. kernels ------------------------------------------------------------
     k3_main = next(r for r in k3_rows if (r["K"], r["Bs"]) == (14, 1))
     k2_main = k2_rows[7168]
     # ms, plain_ms and library_ms are device ms;
@@ -819,7 +1028,22 @@ def main():
          "plain_call_ms": k1_main["plain"][1],
          "library_call_ms": k1_main["library"][1],
          "at": "B=512 s=105 (cholesky_ex + solve_triangular as library); "
-               "launches: flagship, 22 ticks"},
+               "launches: flagship, 22 ticks",
+         "aba": {"launches": ab_launches[0], "at": "whole_body_aba path, "
+                 f"{warm + timed} ticks, per tick 15 at (512, 81), 2 at "
+                 f"(7168, 24) (linearize, corrector) and 1 at (14336, 24) "
+                 f"(both line-search trials); timed at (7168, 24)",
+                 "ms": k1_aba["kernel"][0], "call_ms": k1_aba["kernel"][1],
+                 "plain_ms": k1_aba["plain"][0],
+                 "bound_ms": k1_aba["bound"][0],
+                 "bound_by": k1_aba["bound"][1],
+                 "library_ms": k1_aba["library"][0],
+                 "max_abs_err": k1_aba_err, "shape": [E, nv],
+                 "s81": {"ms": k1_81["kernel"][0],
+                         "call_ms": k1_81["kernel"][1],
+                         "plain_ms": k1_81["plain"][0],
+                         "bound_ms": k1_81["bound"][0],
+                         "library_ms": k1_81["library"][0]}}},
         {"name": "rnea_derivs", "route": "cuda",
          "source": "tpu_locoman_torch/csrc/rnea_derivs.cu",
          "replaces": "tpu_locoman/pallas_rbda.py:227",
@@ -832,7 +1056,10 @@ def main():
          "b14": {"ms": k2_rows[14]["kernel"][0],
                  "call_ms": k2_rows[14]["kernel"][1],
                  "bound_ms": k2_rows[14]["bound"][0]},
-         "at": "B=7168 with forces; launches: flagship, 22 ticks"},
+         "at": "B=7168 with forces; launches: flagship, 22 ticks",
+         "aba": {"launches": ab_launches[1], "at": "whole_body_aba path, "
+                 f"{warm + timed} ticks, at B=7168 with forces (timed in "
+                 f"phase 4)"}},
         {"name": "fac_whole", "route": "cuda",
          "source": "tpu_locoman_torch/csrc/fac_whole.cu",
          "replaces": "tpu_locoman/solver/pallas_fac.py:155",
@@ -841,7 +1068,8 @@ def main():
          "bound_ms": k3_main["bound"][0], "bound_by": k3_main["bound"][1],
          "library_ms": None, "call_ms": k3_main["t"][1],
          "plain_call_ms": k3_main["plain"][1],
-         "at": "Bs=1 K=14 s=110; launches: accurate single robot, 22 ticks"},
+         "at": "Bs=1 K=14 s=110; launches: accurate single robot, 22 ticks",
+         "aba": {"launches": ab_launches[2]}},
     ]
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -2,10 +2,10 @@
 
 PyTorch counterpart of ``tpu_locoman/mpc.py``: ``geometric_dts``,
 ``MPCCarry`` and ``MPC`` (shared and stage parameters, the force warm start
-at the gravity split, the "zero" flip reset, the tick, the time-consistent
-warm shift, the rollout and the whole_body_rnea retraction). Every tensor
-carries the scenario axis first; the JAX version is written per scenario
-and vmapped.
+at the gravity split, the "zero" and "aba" flip resets, the tick, the
+time-consistent warm shift, the rollout and the retraction of every
+formulation). Every tensor carries the scenario axis first; the JAX
+version is written per scenario and vmapped.
 """
 
 from typing import NamedTuple
@@ -68,10 +68,8 @@ class MPC:
                 raise NotImplementedError(
                     f"config preset {config!r} is not ported yet")
             config = PRESETS[config]()
-        if flip_reset not in (True, False, "zero"):
-            raise NotImplementedError(
-                f"flip_reset={flip_reset!r} is not ported yet (ROADMAP queue "
-                f"1, item 13)")
+        if flip_reset not in (True, False, "zero", "aba"):
+            raise ValueError(f"unknown flip_reset {flip_reset!r}")
         self.robot = robot
         self.form = make_formulation(dynamics, robot, **form_kwargs)
         self.trans = Transcription(self.form, nodes)
@@ -133,10 +131,17 @@ class MPC:
         B = t_current.shape[0]
         idx = torch.arange(self.nodes, dtype=torch.float32, device=self.device)
         node0 = torch.where(idx > 0, 1.0, 0.0).expand(B, -1)
-        tau_mask = torch.where(idx < self.form.tau_nodes, 1.0, 0.0).expand(B, -1)
+        ones = torch.ones_like(node0)
+        # with v an input, the velocity rows act at node 0 too
+        state_mask = ones if self.form.v_in_u else node0
+        if self.form.tau_idx is not None:
+            tau_mask = torch.where(idx < self.form.tau_nodes, 1.0,
+                                   0.0).expand(B, -1)
+        else:
+            tau_mask = ones
         return StageParams(dt=self.dts.expand(B, -1), contact=contact,
-                           swing=swing, state_mask=node0, tau_mask=tau_mask,
-                           node0_mask=node0)
+                           swing=swing, state_mask=state_mask,
+                           tau_mask=tau_mask, node0_mask=node0)
 
     # ------------------------------------------------------------------
     def _shift_tables(self):
@@ -212,7 +217,7 @@ class MPC:
                                   arm_vel_des, tau_prev=carry.tau_prev)
         sp = self.make_stage_params(t) if stage_params is None else stage_params
         Z = self.warm_start_Z(carry.solver_state.Z, sp, shared)
-        na = self.form.na_opt
+        na = getattr(self.form, "na_opt", 0)
         if prev_stage_params is not None:
             prev = prev_stage_params.contact
         elif stage_params is None:
@@ -220,19 +225,30 @@ class MPC:
         else:
             prev = None
         if self.flip_reset and na > 0 and prev is not None:
-            # zero the acceleration slots of nodes whose contact state
-            # flipped since the previous tick
+            # reset the acceleration slots of nodes whose contact state
+            # flipped since the previous tick: to zero, or ("aba") to the
+            # forward dynamics at the warm start, a recorded negative result
+            # of the JAX package (worse than zero on the violation spike)
             flipped = (sp.contact != prev).any(-1)
             node_mask = torch.cat([flipped, flipped.new_zeros(B, 1)], 1)
             ndx = self.form.ndx
+            a_new = torch.zeros_like(Z[:, :, ndx:ndx + na])
+            if self.flip_reset == "aba" and hasattr(self.form, "aba_dyn"):
+                x0 = carry.x_init[:, None].expand(-1, self.nodes, -1)
+                d = self.form.decode(x0, Z[:, :-1, :ndx], Z[:, :-1, ndx:])
+                a_new[:, :-1] = self.form.aba_dyn(d["q"], d["v"], d["tau_j"],
+                                                  d["forces"])
             Z[:, :, ndx:ndx + na] = torch.where(
-                node_mask[..., None], torch.zeros_like(Z[:, :, ndx:ndx + na]),
-                Z[:, :, ndx:ndx + na])
+                node_mask[..., None], a_new, Z[:, :, ndx:ndx + na])
         warm = carry.solver_state._replace(Z=Z)
         new_state, stats = self.solver.solve(warm, sp, shared)
         ndx = self.form.ndx
         x_next = self.form.integrate(carry.x_init, new_state.Z[:, 1, :ndx])
-        tau_prev = new_state.Z[:, 1, ndx + self.form.tau_idx:]
+        if self.form.tau_idx is not None:
+            # the executed torque hand-off: node 1 before the shift
+            tau_prev = new_state.Z[:, 1, ndx + self.form.tau_idx:]
+        else:
+            tau_prev = carry.tau_prev
         if self.warm_shift:
             new_state = new_state._replace(
                 Z=self._shift_Z(new_state.Z, carry.x_init, x_next))
@@ -263,5 +279,21 @@ class MPC:
         dx[:, 0] = 0.0
         x = x_init[:, None].expand(-1, n, -1)
         d = form.decode(x, dx, Z[:, :n, ndx:])
-        return {"q": d["q"], "v": d["v"], "a": d["a"], "forces": d["forces"],
-                "tau": d["tau_j"]}
+        q, v, forces = d["q"], d["v"], d["forces"]
+        if form.v_in_u:
+            # finite-difference acceleration with exact base rows; the last
+            # node of the horizon reuses its own input
+            u_next = Z[:, 1:n + 1, ndx:].clone()
+            if n == self.nodes:
+                u_next[:, -1] = Z[:, n - 1, ndx:]
+            v_next = form.decode(x, Z[:, 1:n + 1, :ndx], u_next)["v"]
+            a = (v_next - v) / self.dts[:n, None]
+            a = torch.cat([form.base_acc_dynamics(q, v, a[..., 6:], forces),
+                           a[..., 6:]], -1)
+            tau = form.rnea_dyn(q, v, a, forces)[..., 6:]
+        elif d["tau_j"] is not None:  # torques are inputs
+            a, tau = d["a"], d["tau_j"]
+        else:
+            a = d["a"]
+            tau = form.rnea_dyn(q, v, a, forces)[..., 6:]
+        return {"q": q, "v": v, "a": a, "forces": forces, "tau": tau}

@@ -7,12 +7,15 @@ JAX package's row layout (dynamics, swing zero-force, contact xy velocity,
 blended z velocity, ext force, arm EE velocity, friction normal, cone,
 then the q/v/tau box rows).
 
-The linearization computes the same Jacobian rows as the JAX package but
-writes the chain rule out instead of running AD: the analytic RNEA
-derivatives (kernel K2, ``rnea_derivs.rnea_derivatives``) and the analytic
-frame-kinematics Jacobians are evaluated once on the flat B*N batch and
-composed with the configuration-chart map of ``integrate``. No autograd
-runs through the recursions.
+The linearization computes the same Jacobian rows as the JAX package's
+split path. The dynamics rows come from the formulation
+(``dyn_linearize``): the analytic RNEA derivatives (kernel K2,
+``rnea_derivs.rnea_derivatives``) and ABA's implicit derivatives (kernels
+K1 and K2, ``rbda.aba_derivatives``) evaluated once on the flat B*N batch,
+or reverse-mode AD over plain torch for the centroidal rows. The
+frame-velocity rows come from the analytic frame-kinematics Jacobians.
+Both are composed here with the configuration-chart map of ``integrate``;
+no autograd runs through RNEA or ABA.
 """
 
 from typing import NamedTuple
@@ -22,7 +25,6 @@ import torch
 
 from .. import rbda
 from ..gait import get_spline_vel_z
-from ..rnea_derivs import rnea_derivatives
 
 _INF = 1e9
 
@@ -63,7 +65,12 @@ class Transcription:
         self.m = self.n_eq + self.n_ineq
         self.n_box = 2 * nj + (nj if self.has_tau else 0)
         self.m_dense = self.m - self.n_box
-        slots = [6 + j for j in range(nj)] + [form.nv + 6 + j for j in range(nj)]
+        if form.v_in_u:  # dx = [dh (6), dq (nv)], v = u[:nv]
+            slots = ([12 + j for j in range(nj)]
+                     + [self.ndx + 6 + j for j in range(nj)])
+        else:  # dx = [dq (nv), dv (nv)]
+            slots = ([6 + j for j in range(nj)]
+                     + [form.nv + 6 + j for j in range(nj)])
         if self.has_tau:
             slots += [self.ndx + form.tau_idx + j for j in range(nj)]
         self.box_slots = np.asarray(slots, dtype=np.int64)
@@ -118,8 +125,8 @@ class Transcription:
         nf = form.n_feet
         x_init = _node(shared.x_init, lead)
         dx = dx * sp.node0_mask[..., None]
-        rows = [form.dyn_residual(x_init, dx, u, dx_next, sp)]
         d = form.decode(x_init, dx, u)
+        rows = [form.dyn_residual(x_init, dx, u, dx_next, sp, d)]
         q, v, forces = d["q"], d["v"], d["forces"]
         kin = rbda.fk_vel(form.model, q, v)
         c = sp.contact[..., :nf]
@@ -164,7 +171,9 @@ class Transcription:
         smq = (sp.state_mask * sp.node0_mask)[..., None] > 0
         l.append(torch.where(smq, f32(form.robot.joint_pos_min), -big))
         u.append(torch.where(smq, f32(form.robot.joint_pos_max), big))
-        smv = (sp.state_mask * sp.node0_mask)[..., None] > 0
+        # an input v (centroidal_vel) is live at node 0 as well
+        smv = (sp.state_mask * (1.0 if form.v_in_u else sp.node0_mask))[
+            ..., None] > 0
         vmax = f32(form.robot.joint_vel_max)
         l.append(torch.where(smv, -vmax, -big))
         u.append(torch.where(smv, vmax, big))
@@ -222,45 +231,25 @@ class Transcription:
         dx, dxn = DX[:, :-1], DX[:, 1:]
         u = Z[:, :-1, ndx:]
         lead = dx.shape[:-1]
-        E = lead[0] * lead[1]
         n0 = sp.node0_mask[..., None]
         sm = sp.state_mask[..., None]
         x_init = _node(shared.x_init, lead)
         dxm = dx * n0
-        d = form.decode(x_init, dxm, u)
-        q, v, a = d["q"], d["v"], d["a"]
-        forces, tau_j = d["forces"], d["tau_j"]
+        qo, dqo = form.q_off, form.dq_off
         # chart map: d(local tangent at q) / d(dx_q); joint block = identity
-        Tb = rbda.integrate_tangent_map(x_init[..., :nq], dxm[..., :nv])
+        Tb = rbda.integrate_tangent_map(x_init[..., qo:qo + nq],
+                                        dxm[..., dqo:dqo + nv])
 
         def to_dx(J):  # (B, N, ..., r, nv) local tangent -> dx_q columns
             T_ = Tb.reshape(lead + (1,) * (J.dim() - 4) + (6, 6))
             return torch.cat([J[..., :6] @ T_, J[..., 6:]], -1)
 
-        # ---- dynamics rows: RNEA value + K2 derivatives ------------------
-        ee = tuple(form.ee_frames)
-        tau = rbda.rnea(model, q, v, a, ee, forces)
-        flat = lambda x: x.reshape((E,) + x.shape[2:])  # noqa: E731
-        dq_, dv_, da_, df_ = rnea_derivatives(
-            model, flat(q).contiguous(), flat(v).contiguous(),
-            flat(a).contiguous(), ee, flat(forces).contiguous())
-        unflat = lambda x: x.reshape(lead + x.shape[1:])  # noqa: E731
-        dq_, dv_, da_, df_ = map(unflat, (dq_, dv_, da_, df_))
-        dt = sp.dt[..., None]
-        dyn0 = torch.cat([-(dxm[..., :nv] + v * dt), -(dxm[..., nv:] + a * dt),
-                          tau[..., :6],
-                          sp.tau_mask[..., None] * (tau[..., 6:] - tau_j)], -1)
+        # ---- dynamics rows: the formulation's values and Jacobian ---------
+        d, dyn0, Jd = form.dyn_linearize(x_init, dx, u, sp, to_dx)
+        q, v, forces, tau_j = d["q"], d["v"], d["forces"], d["tau_j"]
         C_pat = torch.as_tensor(self.C_pat, device=Z.device)
         g_dyn = dyn0 + dxn @ C_pat.T
         n0r = n0[..., None]
-        eye_j = torch.eye(form.nj, device=Z.device)
-        Jtau = torch.zeros(lead + (nv, form.nj), device=Z.device)
-        Jtau[..., 6:, :] = -eye_j
-        Jd = torch.cat([to_dx(dq_) * n0r, dv_ * n0r, da_, df_, Jtau], -1)
-        row_mask = torch.cat([torch.ones(lead + (6,), device=Z.device),
-                              sp.tau_mask[..., None].expand(lead + (form.nj,))],
-                             -1)
-        Jd = Jd * row_mask[..., None]
 
         # ---- frame-velocity rows: analytic frame kinematics --------------
         frames = tuple(form.foot_frames)
@@ -308,9 +297,12 @@ class Transcription:
                 [Jv_rel[..., :2, :], Jv[..., ia, 2:3, :]], -2))
         vb0 = torch.cat(vals, -1)
         n_vel = vb0.shape[-1]
-        Jvel = torch.cat([torch.cat(Jq_rows, -2) * n0r,
-                          torch.cat(Jv_rows, -2) * n0r,
-                          Z.new_zeros(lead + (n_vel, self.nu))], -1)
+        # v is dx_v (masked at node 0) or, for centroidal_vel, u[:nv]
+        Jvel = Z.new_zeros(lead + (n_vel, self.s))
+        Jvel[..., dqo:dqo + nv] = torch.cat(Jq_rows, -2) * n0r
+        v0 = self.ndx if form.v_in_u else nv
+        Jv_all = torch.cat(Jv_rows, -2)
+        Jvel[..., v0:v0 + nv] = Jv_all if form.v_in_u else Jv_all * n0r
 
         # ---- closed-form rows -------------------------------------------
         f = forces[..., :3 * nf].reshape(lead + (nf, 3))

@@ -1,16 +1,20 @@
 """Rigid-body dynamics on tensors with explicit leading batch dimensions.
 
-PyTorch counterpart of the main-path subset of ``tpu_locoman/rbda.py``:
-forward kinematics, frame velocities, RNEA with external frame forces,
-the world-frame machinery (ancestry mask, world motion axes and
-inertias), the analytic frame-kinematics Jacobians and the chart maps.
-The analytic RNEA derivatives live in ``rnea_derivs.py`` beside their
-CUDA kernel.
+PyTorch counterpart of ``tpu_locoman/rbda.py`` for the free-flyer base:
+forward kinematics, frame placements, velocities and Jacobians, RNEA with
+external frame forces, the world-frame machinery (ancestry mask, world
+motion axes and inertias), the analytic frame-kinematics Jacobians, the
+chart maps, CRBA, the nonlinear effects, ABA with its analytic
+derivatives, the centre of mass and the centroidal map with its time
+derivative. The analytic RNEA derivatives live in ``rnea_derivs.py``
+beside their CUDA kernel.
 
 Spatial vectors are ordered [linear, angular] as in the JAX package. The
 kinematic tree is static, so the recursions are Python loops over links,
 each step a batched tensor op over every leading dimension. Free-flyer
-(quaternion) base only; the Euler-ZYX chart waits for a later slice.
+(quaternion) base only; the Euler-ZYX chart and the world-frame variants
+(``crba_wf``, ``ccrba_wf``, ``rnea_wf``) wait for a later slice (ROADMAP
+queue 1, item 13b).
 """
 
 import torch
@@ -148,6 +152,12 @@ def frame_velocity_from(model, frame_name, R_w, p_w, v_loc,
                       vel[..., 5:6]], -1)
 
 
+def frame_velocity(model, frame_name, q, v, relative_to_base=False,
+                   base_frame="base_link"):
+    return frame_velocity_from(model, frame_name, *fk_vel(model, q, v),
+                               relative_to_base, base_frame)
+
+
 def rnea(model, q, v, a, ee_frames=(), forces_world=None):
     """Whole-body torques tau(q, v, a, f_ext) (..., nv): the local-frame
     two-pass recursion, with world-frame linear forces applied at the
@@ -252,6 +262,164 @@ def world_inertias(model, R_w, p_w):
     XF = _force_transform(R_w, p_w)
     XM_inv = _motion_transform(Rt, -mv(Rt, p_w))
     return XF @ I_loc @ XM_inv
+
+
+def frame_jacobian_lwa(model, frame_name, q):
+    """LOCAL_WORLD_ALIGNED frame Jacobian J(q) (..., 6, nv) with v_frame =
+    J @ v: the Jv_vel of ``frame_kin_jac`` (the JAX package takes it by
+    jacfwd of the frame velocity, which is linear in v)."""
+    v0 = q.new_zeros(q.shape[:-1] + (model.nv,))
+    return frame_kin_jac(model, (frame_name,), q, v0)["Jv_vel"][..., 0, :, :]
+
+
+def nonlinear_effects(model, q, v):
+    """Coriolis and gravity torques (..., nv): rnea at zero acceleration."""
+    return rnea(model, q, v, torch.zeros_like(v))
+
+
+# ---------------------------------------------------------------------------
+# CRBA, ABA and the centroidal map.
+# ---------------------------------------------------------------------------
+
+def _composite_inertias(model, q):
+    """Per-link subtree composite spatial inertias in the local joint
+    frames (a list of (..., 6, 6)), and the joint transforms R_li
+    (..., n-1, 3, 3), p_li (n-1, 3). Shared by crba and ccrba."""
+    R_li, p_li = _joint_transforms(model, q)
+    I_loc = local_inertias(model, q.device)
+    lead = q.shape[:-1]
+    Ic = [I_loc[i].expand(lead + (6, 6)) for i in range(model.n_links)]
+    for i in range(model.n_links - 1, 0, -1):
+        R, p = R_li[..., i - 1, :, :], p_li[i - 1]
+        Rt = R.transpose(-1, -2)
+        XF = _force_transform(R, p.expand(lead + (3,)))
+        XM_inv = _motion_transform(Rt, -mv(Rt, p))
+        lam = model.parent[i]
+        Ic[lam] = Ic[lam] + XF @ Ic[i] @ XM_inv
+    return Ic, R_li, p_li
+
+
+def crba(model, q):
+    """Mass matrix M(q) (..., nv, nv): the composite-rigid-body
+    recursion."""
+    T = model.tensors(q.device)
+    Ic, R_li, p_li = _composite_inertias(model, q)
+    M = q.new_zeros(q.shape[:-1] + (model.nv, model.nv))
+    M[..., :6, :6] = Ic[0]
+    for i in range(1, model.n_links):
+        F = mv(Ic[i][..., :, 3:], T["axis"][i])
+        col = 6 + i - 1
+        M[..., col, col] = (T["axis"][i] * F[..., 3:]).sum(-1)
+        j = i
+        while True:
+            lam = model.parent[j]
+            F = force_act(R_li[..., j - 1, :, :], p_li[j - 1], F)
+            if lam == 0:
+                M[..., :6, col] = F
+                M[..., col, :6] = F
+                break
+            val = (T["axis"][lam] * F[..., 3:]).sum(-1)
+            M[..., 6 + lam - 1, col] = val
+            M[..., col, 6 + lam - 1] = val
+            j = lam
+    return M
+
+
+def _mass_factor(M):
+    """Linv (..., nv, nv) with Linv^T Linv = (M + 1e-6 I)^-1: one
+    ``solver.qp.chol_inv`` over the whole flat batch, so one launch of
+    kernel K1 on a CUDA tensor. The jitter is the JAX package's: the
+    explicit-inverse solve loses ~cond(M)^2 in f32 near singular
+    configurations."""
+    from .solver.qp import chol_inv
+
+    nv = M.shape[-1]
+    eye = torch.eye(nv, dtype=M.dtype, device=M.device)
+    S = (M + 1e-6 * eye).reshape(-1, nv, nv)
+    return chol_inv(S, 16, "kernel")[1].reshape(M.shape)
+
+
+def _aba_solve(model, q, v, tau, ee_frames, forces_world):
+    """(a, Linv): M a = tau - rnea(q, v, 0, f) through the factor of M."""
+    M = crba(model, q)
+    bias = rnea(model, q, v, torch.zeros_like(v), ee_frames, forces_world)
+    Linv = _mass_factor(M)
+    Lt = Linv.transpose(-1, -2)
+    return mv(Lt, mv(Linv, tau - bias)), Linv
+
+
+def aba(model, q, v, tau, ee_frames=(), forces_world=None):
+    """Forward dynamics a = aba(q, v, tau, f_ext) (..., nv): solves
+    M a = tau - rnea(q, v, 0, f_ext) with the inverse Cholesky factor of
+    M + 1e-6 I."""
+    return _aba_solve(model, q, v, tau, ee_frames, forces_world)[0]
+
+
+def aba_derivatives(model, q, v, tau, ee_frames=(), forces_world=None):
+    """(a, da/dq, da/dv, da/dtau, da/df) of ``aba`` (..., nv[, k]), dq the
+    local tangent, da/df None without forces.
+
+    The implicit rule of the JAX package's ``_aba_cjvp_rule``: M(q) a =
+    tau - bias(q, v, f) gives da/d(q, v, f) = -M^-1 dtau/d(q, v, f), with
+    dtau the RNEA derivatives at (q, v, a, f), and da/dtau = M^-1. One
+    factor of M (one launch of kernel K1 on a CUDA tensor) serves the
+    solve and M^-1 = Linv^T Linv; one ``rnea_derivatives`` call on the
+    flat batch (one launch of kernel K2) gives every dtau block. No
+    autograd runs through the recursions."""
+    from . import rnea_derivs
+
+    lead, nv = q.shape[:-1], model.nv
+    a, Linv = _aba_solve(model, q, v, tau, ee_frames, forces_world)
+    with_f = forces_world is not None and len(ee_frames) > 0
+    flat = lambda x: x.reshape((-1,) + x.shape[len(lead):]).contiguous()  # noqa: E731
+    args = (model, flat(q), flat(v), flat(a))
+    if with_f:
+        args += (tuple(ee_frames), flat(forces_world))
+    dtau_dq, dtau_dv, _, *dtau_df = rnea_derivs.rnea_derivatives(*args)
+    Minv = Linv.transpose(-1, -2) @ Linv
+
+    def solve(d):  # -M^-1 dtau, back to the leading dims
+        return -(Minv @ d.reshape(lead + d.shape[1:]))
+
+    return (a, solve(dtau_dq), solve(dtau_dv), Minv,
+            solve(dtau_df[0]) if with_f else None)
+
+
+def _com_from(model, R_w, p_w):
+    T = model.tensors(R_w.device)
+    pos = mv(R_w, T["com"]) + p_w  # (..., n, 3)
+    return (T["mass"][:, None] * pos).sum(-2) / model.total_mass
+
+
+def center_of_mass(model, q):
+    """World centre of mass (..., 3)."""
+    return _com_from(model, *fk(model, q))
+
+
+def ccrba(model, q):
+    """Centroidal momentum matrix A(q) (..., 6, nv), h = A v, [lin, ang]
+    about the centre of mass in world-aligned axes: the composite-inertia
+    recursion."""
+    T = model.tensors(q.device)
+    Ic, _, _ = _composite_inertias(model, q)
+    R_w, p_w = fk(model, q)
+    com = _com_from(model, R_w, p_w)
+    cols = [_force_transform(R_w[..., 0, :, :], p_w[..., 0, :] - com) @ Ic[0]]
+    for i in range(1, model.n_links):
+        F = mv(Ic[i][..., :, 3:], T["axis"][i])
+        cols.append(force_act(R_w[..., i, :, :], p_w[..., i, :] - com,
+                              F)[..., None])
+    return torch.cat(cols, -1)
+
+
+def dccrba(model, q, v):
+    """Time derivative of the centroidal map along v (..., 6, nv): the
+    directional derivative of A through the manifold integrate, by
+    forward-mode AD as the JAX package takes it with jax.jvp."""
+    _, Adot = torch.func.jvp(
+        lambda dq: ccrba(model, model_integrate(model, q, dq)),
+        (torch.zeros_like(v),), (v,))
+    return Adot
 
 
 # ---------------------------------------------------------------------------

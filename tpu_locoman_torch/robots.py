@@ -26,7 +26,12 @@ class Robot:
 
     FOOT_FRAMES = ["FR_foot", "FL_foot", "RR_foot", "RL_foot"]
 
-    def __init__(self, model, reference_pose, base_frame="base_link"):
+    def __init__(self, model, reference_pose, base_frame="base_link",
+                 use_quaternion=True):
+        if not use_quaternion:
+            raise NotImplementedError(
+                "the Euler-ZYX base chart (use_quaternion=False) is not "
+                "ported yet (ROADMAP queue 1, item 13b)")
         self.model = model
         self.base_frame = base_frame
         if reference_pose and reference_pose in model.reference_configurations:
@@ -54,8 +59,9 @@ class Robot:
 class Go2(Robot):
     """12-DoF Unitree Go2."""
 
-    def __init__(self, reference_pose="standing"):
-        super().__init__(load_spec("go2"), reference_pose, base_frame="base")
+    def __init__(self, reference_pose="standing", use_quaternion=True):
+        super().__init__(load_spec("go2"), reference_pose, base_frame="base",
+                         use_quaternion=use_quaternion)
         self.joint_pos_min = np.tile([-1.0472, -1.5708, -2.7227], 4)
         self.joint_pos_max = np.tile([1.0472, 3.4907, -0.83776], 4)
         self.joint_vel_max = np.tile([30.1, 30.1, 15.70], 4)
@@ -66,12 +72,14 @@ class B2G(Robot):
     """B2 + Z1 arm with the gripper joint locked. ``ignore_arm=True`` (the
     whole arm locked) waits for a later slice."""
 
-    def __init__(self, reference_pose="standing_with_arm_up", ignore_arm=False):
+    def __init__(self, reference_pose="standing_with_arm_up", ignore_arm=False,
+                 use_quaternion=True):
         if ignore_arm:
             raise NotImplementedError(
                 "B2G(ignore_arm=True) is not ported yet (ROADMAP queue 1, "
                 "item 14)")
-        super().__init__(load_spec("b2g"), reference_pose)
+        super().__init__(load_spec("b2g"), reference_pose,
+                         use_quaternion=use_quaternion)
         self.ext_force_frame = "gripperStator"
         self.arm_ee_frame = "gripperStator"
         self.nf += 3
