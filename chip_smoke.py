@@ -6,9 +6,11 @@
     python3 chip_smoke.py --profile FILE   # also write torch.profiler tables
                                            # of three flagship ticks to FILE,
                                            # of three accurate ones to
-                                           # FILE.accurate and of three
-                                           # whole_body_aba ones to FILE.aba,
-                                           # after every timed phase
+                                           # FILE.accurate, of three
+                                           # whole_body_aba ones to FILE.aba
+                                           # and of three sequential flagship
+                                           # ones to FILE.seq, after every
+                                           # timed phase
 
 Phases, one line each (any failure raises; exit code non-zero):
  1. device: nvidia-smi name and power limit, torch and CUDA versions;
@@ -47,7 +49,24 @@ Phases, one line each (any failure raises; exit code non-zero):
     tests/data/torch_golden_b2g_n14_aba.json (whole_body_aba);
 16. whole_body_acc, centroidal_acc and centroidal_vel on B2G N=14, batch 8,
     3 ticks each, and whole_body_acc's kernel path against its plain path;
-17. one JSON line with each kernel's error, times, bound and launch count.
+17. the flagship with the factorizer "sequential" (bench.py's in-code
+    default), batch 512, 2 warm-up and 10 timed ticks (no K1), and its
+    agreement with "cholinv_pb" at batch 8;
+18. N=30 with "sequential" and with "cyclic", batch 512, 1 warm-up and 5
+    timed ticks each, and cyclic's agreement with sequential at batch 8;
+19. a Ruiz-scaled cold start (examples/run_mpc.py's defaults with
+    scaling_iters=3, cholinv_pb), batch 512, 5 ticks from init_carry, and
+    the replay of its JAX fixture;
+20. B2 with the front payload on the hot config, batch 512, 2 warm-up and
+    10 timed ticks, and the replay of its JAX fixture;
+21. the parity ABI v1 dump of the port (B2G N=14, accurate, batch 1) over
+    the first ticks of tools/golden_b2g_rnea_n14.json, held open loop to
+    its states, diffed against it and against JAX's dump held the same way;
+22. one JSON line with each kernel's error, times, bound and launch counts
+    (per path under "path_launches").
+The bounds of 17, 18 and 21 are SPREAD_FACTOR times JAX against itself,
+and the gates of 19 and 20 JAX's own violation widened by that (see
+survey_gate), each read from the files tools/make_torch_golden.py writes.
 Kernel times come in two kinds: device ms, the device's time for one
 call from a CUDA-graph replay of 20 calls (what ranks and bounds a
 kernel), and call ms, the median host-inclusive time of one call between
@@ -91,6 +110,13 @@ K2_FIRST_MS = {7168: (0.6427, 0.6460), 14: (0.0270, 0.0739)}
 # eq-projection node (110), Go2's (78), the old leaf shape (14) and the
 # whole_body_aba node (81)
 K1_SHAPES = ((512, 105), (512, 110), (5, 78), (512, 14), (512, 81))
+# K2's cases in phase 4: (robot, keyword arguments, flat batch)
+K2_CASES = (("B2G", {}, 7168), ("B2G", {}, 14), ("B2G", {}, 5),
+            ("Go2", {}, 7168), ("B2", {"payload": "front"}, 7168),
+            ("B2G", {}, 15360))
+# the cases that phase 4 times, by label
+K2_TIMED = {("B2G", 7168): "B2G 7168", ("B2G", 14): "B2G 14",
+            ("B2", 7168): "B2 7168", ("B2G", 15360): "B2G 15360"}
 VIOL_GATE = 0.35  # shipping quality gate on the mean max_violation
 ACC_GATE = 1e-3  # the accurate preset's contract on the mean max_violation
 ACC_X_TOL = 5e-3  # accurate golden: x (see replay_golden)
@@ -100,6 +126,31 @@ ABA_VIOL_REL = 0.03  # whole_body_aba golden: per tick |dviol| / viol
 ABA_MEAN_REL = 0.01  # whole_body_aba golden: rollout mean violation
 GOLDEN_ABA = os.path.join(ROOT, "tests", "data",
                           "torch_golden_b2g_n14_aba.json")
+GOLDEN_SEQ = os.path.join(ROOT, "tests", "data",
+                          "torch_golden_b2g_n14_seq.json")
+GOLDEN_SCALED = os.path.join(ROOT, "tests", "data",
+                             "torch_golden_b2g_n14_scaled.json")
+GOLDEN_B2 = os.path.join(ROOT, "tests", "data",
+                         "torch_golden_b2_front_n14.json")
+# JAX against itself at batch 8 (agreement bounds) and JAX's violation
+# surveys (gates), written by tools/make_torch_golden.py --agreement and
+# --case ... --violation-survey
+SPREADS = os.path.join(ROOT, "tests", "data", "torch_spreads.json")
+# JAX's accurate dumps with "sequential" and "cholinv", held open loop to
+# the golden dump, against it and against each other over the parity
+# phase's ticks, and the "sequential" dump (tools/make_torch_golden.py
+# --parity-spread 4: the ticks before any f32 summation order takes another
+# line-search step inside a tick, see PARITY_B2G_AGAINST there)
+PARITY_SPREAD = os.path.join(ROOT, "tests", "data", "torch_parity_b2g_n14.json")
+PARITY_JAX = os.path.join(ROOT, "tests", "data",
+                          "torch_parity_b2g_n14_jax_seq.json")
+PARITY_GOLDEN = os.path.join(ROOT, "tools", "golden_b2g_rnea_n14.json")
+# a parity bound wider than this share of the quantity's largest magnitude
+# would pass an answer that far off: such a quantity is printed, not held
+PARITY_SCALE_SHARE = 0.25
+# a bound set from JAX against itself is this many times its spread, as the
+# whole_body_aba replay's are
+SPREAD_FACTOR = 3.0
 # NVIDIA's data sheet, H100 SXM: memory rate, and the f32 rate outside the
 # tensor cores (the solver runs no TF32)
 H100_BYTES_PER_S = 3.35e12
@@ -189,18 +240,21 @@ def nonfinite_pattern(torch, M):
 
 
 def hot_mpc(T, device, factorizer, nodes=14, ship=None,
-            dynamics="whole_body_rnea"):
-    """B2G MPC with the hot config (or, with ship["eq_projection"], the
-    accurate one) read from a SHIPPING.json-style dict, for the formulation
-    ``dynamics``."""
+            dynamics="whole_body_rnea", robot=("B2G", {})):
+    """An MPC with the hot config (or, with ship["eq_projection"], the
+    accurate one; ship may also set "sqp_iters" and "scaling_iters") read
+    from a SHIPPING.json-style dict, for the formulation ``dynamics`` and
+    ``robot`` = (class name, keyword arguments), B2G by default."""
     ship = ship or {}
-    robot = T.B2G()
+    robot = getattr(T, robot[0])(**robot[1])
     robot.set_gait_sequence("trot", 0.8)
     cfg = T.SQPConfig(
-        sqp_iters=1, n_trials=int(ship.get("ls_trials", 2)),
+        sqp_iters=int(ship.get("sqp_iters", 1)),
+        n_trials=int(ship.get("ls_trials", 2)),
         corrector_iters=int(ship.get("corrector", 5)),
         eq_projection=int(ship.get("eq_projection", 0)),
         admm=T.ADMMConfig(iters=int(ship.get("admm_iters", 10)),
+                          scaling_iters=int(ship.get("scaling_iters", 0)),
                           factorizer=factorizer))
     return T.MPC(robot, dynamics=dynamics, nodes=nodes,
                  flip_reset=True, warm_shift=bool(ship.get("warm_shift", True)),
@@ -247,15 +301,17 @@ def run_ticks(step, carry, target, dt, warm, timed):
             "carry": carry}
 
 
-def run_flagship(dev, ship, batch, warm, timed, dynamics="whole_body_rnea"):
-    """Drive the main path (or another formulation's) through its user
-    entry points: MPC, then batched_init and batched_step, ticking every
-    scenario. Returns run_ticks' summary and the MPC."""
+def run_flagship(dev, ship, batch, warm, timed, dynamics="whole_body_rnea",
+                 nodes=14, robot=("B2G", {})):
+    """Drive the main path (or another formulation's, horizon or robot)
+    through its user entry points: MPC, then batched_init and batched_step,
+    ticking every scenario. Returns run_ticks' summary and the MPC."""
     import torch
 
     import tpu_locoman_torch as T
 
-    mpc = hot_mpc(T, dev, ship["factorizer"], ship=ship, dynamics=dynamics)
+    mpc = hot_mpc(T, dev, ship["factorizer"], nodes=nodes, ship=ship,
+                  dynamics=dynamics, robot=robot)
     targets = torch.tensor([0.2, 0, 0, 0, 0, 0], device=dev).repeat(batch, 1)
     return run_ticks(T.batched_step(mpc), T.batched_init(mpc, batch), targets,
                      mpc.dt_min, warm, timed), mpc
@@ -307,23 +363,25 @@ def plain_kernels():
         rnea_derivs.rnea_derivatives, tqp.chol_inv_node = saved
 
 
-def compare_paths(dev, ship, batch=8, ticks=3, dynamics="whole_body_rnea"):
+def compare_paths(dev, ship, batch=8, ticks=3, dynamics="whole_body_rnea",
+                  pair=("cholinv_pb", "cholinv"), plain=True, nodes=14):
     """The kernel path against the plain path (K1's and K2's plain
-    versions swapped in) from the same carry: (max |dx|, max normalized
-    |dZ|) over the ticks."""
+    versions swapped in) from the same carry; or, with plain=False, one
+    factorizer against another (pair), both on the kernels. Returns (max
+    |dx|, max normalized |dZ|) over the ticks, targets vx 0 to 0.3."""
     import torch
 
     import tpu_locoman_torch as T
 
     tg = torch.zeros(batch, 6, device=dev)
     tg[:, 0] = torch.linspace(0.0, 0.3, batch, device=dev)
-    mk = hot_mpc(T, dev, "cholinv_pb", ship=ship, dynamics=dynamics)
-    mp = hot_mpc(T, dev, "cholinv", ship=ship, dynamics=dynamics)
+    mk, mp = (hot_mpc(T, dev, fz, nodes=nodes, ship=ship, dynamics=dynamics)
+              for fz in pair)
     ck = cp = T.batched_init(mk, batch)
     ex = ez = 0.0
     for k in range(ticks):
         ck, _ = mk.step(ck, k * mk.dt_min, tg)
-        with plain_kernels():
+        with plain_kernels() if plain else contextlib.nullcontext():
             cp, _ = mp.step(cp, k * mp.dt_min, tg)
         ex = max(ex, float((ck.x_init - cp.x_init).abs().max()))
         zk, zp = ck.solver_state.Z, cp.solver_state.Z
@@ -363,6 +421,14 @@ def replay_golden(dev, factorizer, path=GOLDEN):
     alpha and status equal. The port's plain path on the CPU lands within
     3.7e-6 in x and 0.94% per tick.
 
+    A fixture with a "spread" (JAX at another factorizer against it,
+    tools/make_torch_golden.py --case ... --against: the "sequential",
+    scaled and B2 fixtures) is held at SPREAD_FACTOR times it: x atol, and
+    per tick |dviol| of the fixture's (which bounds the rollout mean as
+    well), alpha and status equal. The rollout mean is not held to its own
+    spread: that is a difference of sums that nearly cancel (1.7e-4 for the
+    "sequential" fixture, whose ticks differ by up to 12.9%).
+
     Returns (max x err, max violation err, mean violation rel err, ticks,
     batch)."""
     import numpy as np
@@ -373,12 +439,15 @@ def replay_golden(dev, factorizer, path=GOLDEN):
 
     gold = convert.load_golden(path)
     s = gold["setup"]
+    x_tol, viol_rel, viol_abs, mean_rel_tol = golden_tolerances(gold)
     accurate = s.get("eq_projection", 0) > 0
-    aba = s["dynamics"] == "whole_body_aba"
     mg = hot_mpc(T, dev, factorizer, nodes=s["nodes"], ship={
         "ls_trials": s["ls_trials"], "corrector": s["corrector"],
         "admm_iters": s["admm_iters"], "warm_shift": s["warm_shift"],
-        "eq_projection": s.get("eq_projection", 0)}, dynamics=s["dynamics"])
+        "sqp_iters": s["sqp_iters"],
+        "scaling_iters": s.get("scaling_iters", 0),
+        "eq_projection": s.get("eq_projection", 0)}, dynamics=s["dynamics"],
+        robot=(s["robot"], s.get("robot_kwargs", {})))
     cg = convert.carry_from_numpy(gold["init"], dev)
     tg = torch.tensor(gold["targets"], device=dev)
     gx = gv = 0.0
@@ -389,15 +458,12 @@ def replay_golden(dev, factorizer, path=GOLDEN):
         v = st["max_violation"].cpu().numpy()
         rv = ref["max_violation"]
         dv = np.abs(v - rv)
-        check(dx <= (ACC_X_TOL if accurate else ABA_X_TOL if aba else 1e-3),
-              f"golden tick {k}: x err {dx}")
+        check(dx <= x_tol, f"golden tick {k}: x err {dx} > {x_tol}")
         if accurate:
             ok = (np.all(v <= ACC_GATE) and np.all(rv <= ACC_GATE)
                   and np.all(dv <= ACC_VIOL_TOL))
-        elif aba:
-            ok = np.all(dv <= ABA_VIOL_REL * np.abs(rv))
         else:
-            ok = np.all(dv <= 0.4 * np.abs(rv) + 1e-3)
+            ok = np.all(dv <= viol_rel * np.abs(rv) + viol_abs)
         check(ok, f"golden tick {k}: violation {v} vs {rv}")
         check(np.array_equal(st["alpha"].cpu().numpy(), ref["alpha"]),
               f"golden tick {k}: alpha")
@@ -408,9 +474,26 @@ def replay_golden(dev, factorizer, path=GOLDEN):
         refs.append(rv)
     mean_rel = abs(float(np.mean(vs)) / float(np.mean(refs)) - 1.0)
     if not accurate:
-        check(mean_rel <= (ABA_MEAN_REL if aba else 0.1),
+        check(mean_rel <= mean_rel_tol,
               f"golden rollout mean violation off by {mean_rel}")
     return gx, gv, mean_rel, len(gold["ticks"]), len(s["targets_vx"])
+
+
+def golden_tolerances(gold):
+    """(x atol, per tick violation tolerance relative to the fixture's and
+    absolute, rollout mean relative tolerance) of a fixture, as
+    replay_golden states them (the accurate fixture's violation is held by
+    ACC_GATE and ACC_VIOL_TOL instead)."""
+    s = gold["setup"]
+    if "spread" in gold:
+        sp = gold["spread"]
+        return (SPREAD_FACTOR * sp["x"], SPREAD_FACTOR * sp["viol_rel"], 0.0,
+                min(0.1, SPREAD_FACTOR * sp["viol_rel"]))
+    if s.get("eq_projection", 0) > 0:
+        return ACC_X_TOL, None, None, None
+    if s["dynamics"] == "whole_body_aba":
+        return ABA_X_TOL, ABA_VIOL_REL, 0.0, ABA_MEAN_REL
+    return 1e-3, 0.4, 1e-3, 0.1
 
 
 def k3_work(Bs, K, s):
@@ -452,14 +535,15 @@ def ms_summary(tick_ms):
             f"max {max(tick_ms):.2f} over {len(tick_ms)} ticks")
 
 
-def compare_factorizers(dev, ship, names, batch=8, ticks=3):
+def compare_factorizers(dev, ship, names, batch=8, ticks=3, solve_only=()):
     """Each factorizer in names against "cholinv_pb" on the hot config from
     the same carry. Returns ({name: (max |dx|, max normalized |dZ|)},
-    {name: solve error}): the second, for "cholinv_pb" and each name, is
-    the worst relative error max |x - x64| / max |x64| of one seeded solve
-    of each KKT system that the reference run factorized (the flagship's
-    real blocks), against the plain recursion in float64; "cholinv" (the
-    plain recursion in float32, no kernel) is the yardstick."""
+    {name: solve error}): the second, for "cholinv_pb", each name and each
+    of solve_only, is the worst relative error max |x - x64| / max |x64| of
+    one seeded solve of each KKT system that the reference run factorized
+    (the flagship's real blocks), against the plain recursion in float64;
+    "cholinv" (the plain recursion in float32, no kernel) is the
+    yardstick."""
     import torch
 
     import tpu_locoman_torch as T
@@ -484,7 +568,8 @@ def compare_factorizers(dev, ship, names, batch=8, ticks=3):
             refs.append(cr)
     finally:
         tqp._factorize_by_name = by_name
-    solve_err = dict.fromkeys(("cholinv", "cholinv_pb") + tuple(names), 0.0)
+    solve_err = dict.fromkeys(("cholinv", "cholinv_pb") + tuple(names)
+                              + tuple(solve_only), 0.0)
     gen = torch.Generator(device=dev).manual_seed(0)
     for H, U in blocks:
         s = H.shape[-1]
@@ -493,7 +578,7 @@ def compare_factorizers(dev, ship, names, batch=8, ticks=3):
         x64 = tqp.solve_factorized(fac_whole.factorize_whole_plain(
             H.double(), Uf.double()), b.double())
         for name in solve_err:
-            fac = by_name(H, Uf if name == "pallas" else U, name)
+            fac = by_name(H, Uf if name in ("pallas", "cyclic") else U, name)
             x = tqp._solver_for(fac)(fac, b).double()
             solve_err[name] = max(solve_err[name], float(
                 (x - x64).abs().max() / x64.abs().max()))
@@ -511,13 +596,264 @@ def compare_factorizers(dev, ship, names, batch=8, ticks=3):
     return out, solve_err
 
 
+def reset_launches():
+    from tpu_locoman_torch import rnea_derivs
+    from tpu_locoman_torch.solver import chol_base, fac_whole
+
+    chol_base.launches = rnea_derivs.launches = fac_whole.launches = 0
+
+
+def read_launches():
+    """(K1, K2, K3) launches since reset_launches."""
+    from tpu_locoman_torch import rnea_derivs
+    from tpu_locoman_torch.solver import chol_base, fac_whole
+
+    return chol_base.launches, rnea_derivs.launches, fac_whole.launches
+
+
+def load_spreads():
+    with open(SPREADS) as fh:
+        return json.load(fh)
+
+
+def path_line(r, batch, launches, ticks):
+    """The common part of a new path's line: ms/tick, solves/s,
+    max_violation, status and launches."""
+    import numpy as np
+
+    ms = float(np.mean(r["tick_ms"]))
+    return (f"{ms_summary(r['tick_ms'])}; {batch * 1e3 / ms:.1f} solves/s; "
+            f"max_violation mean {r['viol_mean']:.4g} worst tick "
+            f"{r['viol_worst']:.4g}; status {r['status']}; launches K1 "
+            f"{launches[0]} K2 {launches[1]} K3 {launches[2]} over {ticks} "
+            f"ticks")
+
+
+def phase_sequential(dev, ship, spreads, batch=512, warm=2, timed=10):
+    """17: the battery's 01_default factorizer on the flagship: "sequential"
+    (the library Cholesky by panels; no K1), then its agreement with
+    "cholinv_pb" at batch 8 over the spread's ticks, within SPREAD_FACTOR x
+    JAX "sequential" against JAX "cholinv" on the same ticks."""
+    reset_launches()
+    r, _ = run_flagship(dev, dict(ship, factorizer="sequential"), batch, warm,
+                        timed)
+    launches, ticks = read_launches(), warm + timed
+    check(launches == (0, ticks, 0), f"sequential launches {launches}")
+    check(r["viol_mean"] <= VIOL_GATE,
+          f"sequential violation mean {r['viol_mean']} > {VIOL_GATE}")
+    sp = spreads["flagship"]
+    ex, ez = compare_paths(dev, ship, batch=sp["batch"], ticks=sp["ticks"],
+                           pair=("sequential", "cholinv_pb"), plain=False)
+    tx, tz = SPREAD_FACTOR * sp["x"], SPREAD_FACTOR * sp["Z"]
+    check(ex <= tx and ez <= tz, f"sequential vs cholinv_pb: x {ex} > {tx} "
+          f"or Z {ez} > {tz}")
+    return r, launches, (
+        f"[17 sequential] B2G whole_body_rnea N=14 batch {batch}, "
+        f"bench_defaults with sequential: {path_line(r, batch, launches, ticks)}"
+        f" (gate {VIOL_GATE}); against cholinv_pb at batch {sp['batch']}, "
+        f"{sp['ticks']} ticks: x {ex:.3g} (tol {tx:.3g}), Z normalized "
+        f"{ez:.3g} (tol {tz:.3g}) = {SPREAD_FACTOR:g} x JAX sequential "
+        f"against JAX cholinv (x {sp['x']:.3g}, Z {sp['Z']:.3g})")
+
+
+def phase_n30(dev, ship, spreads, batch=512, warm=1, timed=5):
+    """18: the long horizon of the battery's 09_n30_seq and 10_n30_cyclic:
+    N=30 with "sequential", then "cyclic" (31 blocks padded to 32), and
+    cyclic's agreement with sequential at batch 8 within SPREAD_FACTOR x
+    JAX cyclic against JAX sequential."""
+    runs, parts = {}, []
+    for fz in ("sequential", "cyclic"):
+        reset_launches()
+        r, _ = run_flagship(dev, dict(ship, factorizer=fz), batch, warm,
+                            timed, nodes=30)
+        launches, ticks = read_launches(), warm + timed
+        check(launches == (0, ticks, 0), f"N=30 {fz} launches {launches}")
+        check(r["viol_mean"] <= VIOL_GATE,
+              f"N=30 {fz} violation mean {r['viol_mean']} > {VIOL_GATE}")
+        runs[fz] = (r, launches)
+        parts.append(f"{fz}: {path_line(r, batch, launches, ticks)}")
+    sp = spreads["n30"]
+    ex, ez = compare_paths(dev, ship, batch=sp["batch"], ticks=sp["ticks"],
+                           pair=("cyclic", "sequential"), plain=False,
+                           nodes=30)
+    tx, tz = SPREAD_FACTOR * sp["x"], SPREAD_FACTOR * sp["Z"]
+    check(ex <= tx and ez <= tz, f"N=30 cyclic vs sequential: x {ex} > {tx} "
+          f"or Z {ez} > {tz}")
+    return runs, (
+        f"[18 n30] B2G whole_body_rnea N=30 batch {batch}, bench_defaults; "
+        + "; ".join(parts) + f" (gate {VIOL_GATE} each); cyclic against "
+        f"sequential at batch {sp['batch']}, {sp['ticks']} ticks: x {ex:.3g} "
+        f"(tol {tx:.3g}), Z normalized {ez:.3g} (tol {tz:.3g}) = "
+        f"{SPREAD_FACTOR:g} x JAX's (x {sp['x']:.3g}, Z {sp['Z']:.3g})")
+
+
+#: examples/run_mpc.py's defaults (2 SQP iterations of 100 ADMM sweeps, no
+#: corrector, 8 line-search trials) with Ruiz scaling
+SCALED_SHIP = {"sqp_iters": 2, "admm_iters": 100, "corrector": 0,
+               "ls_trials": 8, "scaling_iters": 3, "warm_shift": True,
+               "factorizer": "cholinv_pb"}
+
+
+def survey_gate(survey, fixture):
+    """(gate, per tick relative spread) on a path's mean max_violation:
+    JAX's survey mean widened by SPREAD_FACTOR x the largest per tick
+    relative change of max_violation under another f32 summation order
+    (the fixture's spread: JAX against the fixture), at most VIOL_GATE. A
+    mean of ticks that each move by at most that share moves by at most
+    that share too."""
+    from tpu_locoman_torch import convert
+
+    rel = convert.load_golden(fixture)["spread"]["viol_rel"]
+    return min(VIOL_GATE, (1 + SPREAD_FACTOR * rel) * survey["mean"]), rel
+
+
+def gate_text(gate, rel, survey):
+    return (f"gate {gate:.4g} = JAX's {survey['mean']:.4g} at batch "
+            f"{survey['batch']} x (1 + {SPREAD_FACTOR:g} x {100 * rel:.3g}%), "
+            f"at most {VIOL_GATE}")
+
+
+def replay_text(dev, fz, fixture):
+    """Replay ``fixture`` (replay_golden) and describe the result."""
+    from tpu_locoman_torch import convert
+
+    gx, gv, grel, n_ticks, n_b = replay_golden(dev, fz, fixture)
+    tol = golden_tolerances(convert.load_golden(fixture))
+    return (f"JAX fixture replayed ({n_ticks} ticks, batch {n_b}): x {gx:.3g} "
+            f"(tol {tol[0]:.3g}), violation {gv:.3g} (tol "
+            f"{100 * tol[1]:.3g}% per tick), rollout mean off by "
+            f"{100 * grel:.3g}% (tol {100 * tol[3]:.3g}%), alpha and status "
+            f"equal (tolerances {SPREAD_FACTOR:g} x JAX against the fixture, "
+            f"the mean's at most 10%)")
+
+
+def phase_scaled(dev, spreads, batch=512, ticks=5):
+    """19: a Ruiz-scaled cold start, 5 ticks from init_carry (K1 15 per
+    factorization and K2 one per linearize, two of each per tick), within
+    survey_gate of JAX's violation survey of the configuration; then the
+    JAX fixture of the configuration replayed."""
+    reset_launches()
+    r, _ = run_flagship(dev, SCALED_SHIP, batch, 0, ticks)
+    launches = read_launches()
+    check(launches == (30 * ticks, 2 * ticks, 0),
+          f"scaled launches {launches}")
+    sv = spreads["survey_scaled"]
+    gate, rel = survey_gate(sv, GOLDEN_SCALED)
+    check(r["viol_mean"] <= gate,
+          f"scaled violation mean {r['viol_mean']} > {gate}")
+    return r, launches, (
+        f"[19 scaled] B2G whole_body_rnea N=14 batch {batch}, run_mpc "
+        f"defaults (sqp 2 x admm 100) with scaling_iters 3 and cholinv_pb, "
+        f"from init_carry: {path_line(r, batch, launches, ticks)} "
+        f"({gate_text(gate, rel, sv)}); "
+        + replay_text(dev, "cholinv_pb", GOLDEN_SCALED))
+
+
+def phase_b2(dev, ship, spreads, batch=512, warm=2, timed=10):
+    """20: B2 with the front payload (examples/run_mpc.py --robot b2's
+    family) on the hot config: K1 one launch per node at s = 81 and K2's
+    general instance on B2's 13-link tree with the payload force; within
+    survey_gate of JAX's survey; then its JAX fixture replayed."""
+    reset_launches()
+    r, _ = run_flagship(dev, ship, batch, warm, timed,
+                        robot=("B2", {"payload": "front"}))
+    launches, ticks = read_launches(), warm + timed
+    check(launches == (15 * ticks, ticks, 0), f"B2 launches {launches}")
+    sv = spreads["survey_b2"]
+    gate, rel = survey_gate(sv, GOLDEN_B2)
+    check(r["viol_mean"] <= gate, f"B2 violation mean {r['viol_mean']} > "
+          f"{gate}")
+    return r, launches, (
+        f"[20 b2] B2(payload=front) whole_body_rnea N=14 batch {batch}, "
+        f"bench_defaults: {path_line(r, batch, launches, ticks)} "
+        f"({gate_text(gate, rel, sv)}); "
+        + replay_text(dev, "cholinv_pb", GOLDEN_B2))
+
+
+def held_bounds(spread):
+    """{quantity: bound} of the quantities a parity diff is held to, from
+    ``spread`` (a diff of JAX against the same reference): SPREAD_FACTOR x
+    JAX's max abs error, where that is positive (node 0's q and v are the
+    held state itself) and at most PARITY_SCALE_SHARE of the reference's
+    largest magnitude. The other quantities are printed, not held."""
+    return {k: SPREAD_FACTOR * e["max_abs_err"] for k, e in spread.items()
+            if 0 < SPREAD_FACTOR * e["max_abs_err"]
+            <= PARITY_SCALE_SHARE * e["ref_scale"]}
+
+
+def phase_parity(dev):
+    """21: the port's parity ABI v1 dump of the golden dump's configuration
+    (B2G N=14, accurate: sqp 6 x admm 400, eq_projection 2, batch 1, on the
+    card with "auto" = "cholinv_pb") over the spread's first T ticks, held
+    open loop to the golden's states, diffed with the port's diff against
+    the golden and against JAX "sequential"'s dump held the same way, each
+    within held_bounds of JAX against the same reference."""
+    import numpy as np
+
+    from tpu_locoman_torch import parity
+
+    with open(PARITY_SPREAD) as fh:
+        spread = json.load(fh)
+    with open(PARITY_GOLDEN) as fh:
+        golden = json.load(fh)
+    with open(PARITY_JAX) as fh:
+        jax_dump = json.load(fh)
+    n = spread["ticks"]
+    tick_s = []
+    t_last = [time.perf_counter()]
+
+    def log_tick(k, v):
+        now = time.perf_counter()
+        tick_s.append(now - t_last[0])
+        t_last[0] = now
+
+    reset_launches()
+    dump = parity.make_dump(None, ticks=n, device=dev.type, log=log_tick,
+                            hold=golden)
+    launches = read_launches()
+    check(launches[0] > 0 and launches[1] > 0 and launches[2] == 0,
+          f"parity launches {launches}")
+    check(dump["config"] == dict(golden["config"], ticks=n)
+          == jax_dump["config"], f"parity config {dump['config']}")
+    parts = []
+    for ref, name, sp in ((golden, "golden", spread["spread"]),
+                          (jax_dump, "JAX sequential", spread["jax_spread"])):
+        d = parity.diff(dump, ref, ticks=n, warn=False)
+        bounds = held_bounds(sp)
+        check(set(d) == set(sp), f"parity quantities {sorted(d)}")
+        for k, b in bounds.items():
+            check(d[k]["max_abs_err"] <= b,
+                  f"parity against {name}, {k}: {d[k]['max_abs_err']} > {b}")
+        worst = max(bounds, key=lambda k: d[k]["max_abs_err"] / bounds[k])
+        parts.append(
+            f"against {name}, held: " + ", ".join(
+                f"{k} {d[k]['max_abs_err']:.3g} ({bounds[k]:.3g})"
+                for k in sorted(bounds)) + "; printed only: " + ", ".join(
+                f"{k} {d[k]['max_abs_err']:.3g} (JAX "
+                f"{sp[k]['max_abs_err']:.3g}, scale {sp[k]['ref_scale']:.3g})"
+                for k in sorted(set(d) - set(bounds)))
+            + f"; closest to its bound: {worst}")
+    v = np.asarray(dump["max_violation"])
+    return d, launches, (
+        f"[21 parity] ABI v1 dump of B2G N=14 accurate (sqp 6 x admm 400, "
+        f"eq_projection 2, batch 1, cholinv_pb) over {n} ticks held open "
+        f"loop to tools/golden_b2g_rnea_n14.json: "
+        f"{float(np.mean(tick_s)) * 1e3:.1f} ms/tick mean, "
+        f"{float(np.median(tick_s)) * 1e3:.1f} p50; max_violation mean "
+        f"{v.mean():.3g} worst tick {v.max():.3g}; launches K1 {launches[0]} "
+        f"K2 {launches[1]} K3 {launches[2]}; max abs err (bound = "
+        f"{SPREAD_FACTOR:g} x JAX's against the same reference, held where "
+        f"at most {PARITY_SCALE_SHARE:g} of its scale) " + "; ".join(parts))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="FILE",
                     help="write torch.profiler tables of three flagship "
                          "ticks to FILE, of three accurate single-robot "
-                         "ticks to FILE.accurate and of three whole_body_aba "
-                         "ticks to FILE.aba, after every timed phase")
+                         "ticks to FILE.accurate, of three whole_body_aba "
+                         "ticks to FILE.aba and of three sequential flagship "
+                         "ticks to FILE.seq, after every timed phase")
     args = ap.parse_args()
 
     import torch
@@ -612,10 +948,12 @@ def main():
 
     # ---- 4. K2 against its plain version ---------------------------------
     # B2G at the flagship's flat batch (512 x 14), at accurate batch 1's
-    # (14) and at a ragged 5; Go2 at 7168: with and without forces
+    # (14), at a ragged 5 and at the N=30 path's (512 x 30); Go2 and B2
+    # with the front payload (the general instance on a 13-link tree with a
+    # fifth force frame) at 7168: with and without forces
     k2_err, k2_inputs = 0.0, {}
-    for name, B in (("B2G", 7168), ("B2G", 14), ("B2G", 5), ("Go2", 7168)):
-        rob = getattr(T, name)()
+    for name, kw, B in K2_CASES:
+        rob = getattr(T, name)(**kw)
         m = rob.model
         ee = tuple(rob.FOOT_FRAMES) + ((rob.ext_force_frame,)
                                        if rob.ext_force_frame else ())
@@ -635,10 +973,11 @@ def main():
                 check(e <= tol,
                       f"K2 {name} {oname} B={B} forces={with_f}: {e} > {tol}")
                 k2_err = max(k2_err, e)
-        if name == "B2G" and B in (7168, 14):
-            k2_inputs[B] = (m, qt, vt, at, ee, ft)
+        if (name, B) in K2_TIMED:
+            k2_inputs[K2_TIMED[(name, B)]] = (m, qt, vt, at, ee, ft)
     k2_rows = {}
-    for B, (m_, q_, v_, a_, ee_, f_) in k2_inputs.items():
+    for label, (m_, q_, v_, a_, ee_, f_) in k2_inputs.items():
+        B = q_.shape[0]
         fq = rnea_derivs.forward_quantities(m_, q_, v_, a_, ee_, f_)
         reps = 20 if B > 14 else 100
         # the forward pass and the plain pass copy nothing from the host,
@@ -661,19 +1000,21 @@ def main():
         pairs = float(m_.tensors(dev)["anc"].sum())
         row["bound"] = bound(4 * (sum(t.numel() for t in k2_in) + k2_out),
                              B * pairs * (6 * 72 + 8 * 30 + 36))
-        row["first"] = K2_FIRST_MS.get(B)
-        k2_rows[B] = row
+        row["B"] = B
+        row["first"] = K2_FIRST_MS.get(B) if label.startswith("B2G") else None
+        k2_rows[label] = row
         del fq
-    plog("[4 K2] rnea_derivatives == plain for B2G B in (7168, 14, 5) and Go2 "
-        f"B=7168, with and without forces: max abs err {k2_err:.3g} (tol "
-        f"{K2_TOL}*(max+1)); B2G with forces, device ms / call ms: " + "; ".join(
-            f"B={B} ({rnea_derivs.lanes_per_element(B, dev)} threads per "
+    plog("[4 K2] rnea_derivatives == plain for " + ", ".join(
+        f"{n}{'(' + str(kw) + ')' if kw else ''} B={B}" for n, kw, B in K2_CASES)
+        + f", with and without forces: max abs err {k2_err:.3g} (tol "
+        f"{K2_TOL}*(max+1)); with forces, device ms / call ms: " + "; ".join(
+            f"{label} ({rnea_derivs.lanes_per_element(r['B'], dev)} threads per "
             f"element): kernel {r['kernel'][0]:.4f} / {r['kernel'][1]:.4f} (first "
             f"design: {'not measured' if r['first'] is None else '%.4f / %.4f' % r['first']}"
             f"), plain pass {r['plain'][0]:.4f} / {r['plain'][1]:.4f}, bound "
             f"{r['bound'][0]:.6f} ({r['bound'][1]}), the plain-torch forward "
             f"pass before it {r['forward'][0]:.4f} / {r['forward'][1]:.4f}"
-            for B, r in k2_rows.items()))
+            for label, r in k2_rows.items()))
 
     # ---- 5. the flagship main path -----------------------------------------
     with open(os.path.join(ROOT, "SHIPPING.json")) as fh:
@@ -702,8 +1043,8 @@ def main():
         f"K2 {k2_launches} over {ticks} ticks; host load average "
         f"{os.getloadavg()[0]:.2f} on {os.cpu_count()} cores")
 
-    def batched_ticks(dynamics):
-        mpc = hot_mpc(T, dev, ship["factorizer"], ship=ship, dynamics=dynamics)
+    def batched_ticks(dynamics, factorizer=ship["factorizer"]):
+        mpc = hot_mpc(T, dev, factorizer, ship=ship, dynamics=dynamics)
         targets = torch.tensor([0.2, 0, 0, 0, 0, 0], device=dev).repeat(
             batch, 1)
         return (T.batched_step(mpc), T.batched_init(mpc, batch), targets,
@@ -845,7 +1186,8 @@ def main():
         f"K2 {prod_launches[1] // ticks} K3 {prod_launches[2] // ticks}")
 
     # ---- 11. factorizers against each other -----------------------------------
-    fz, fz_solve = compare_factorizers(dev, ship, ("pallas", "babe_pb"))
+    fz, fz_solve = compare_factorizers(dev, ship, ("pallas", "babe_pb"),
+                                       solve_only=("sequential", "cyclic"))
     plog("[11 factorizers] hot config batch 8, 3 ticks, against cholinv_pb: "
         + "; ".join(f"{n} x max abs err {ex:.3g}, Z normalized err {ez:.3g}"
                     for n, (ex, ez) in fz.items()) + " (tol 1e-3 each); "
@@ -1003,6 +1345,23 @@ def main():
         f"path == plain path: x max abs err {ex:.3g} (tol 1e-3), Z "
         f"normalized err {ez:.3g} (tol 1e-3)")
 
+    # ---- 17-21. the sequential and cyclic factorizers, Ruiz scaling, B2
+    # and the parity dump ----------------------------------------------------
+    spreads = load_spreads()
+    sq, sq_launches, line = phase_sequential(dev, ship, spreads, batch)
+    plog(line)
+    profiles.append(("17b", "three sequential flagship ticks",
+                     f"{args.profile}.seq", float(np.mean(sq["tick_ms"])),
+                     lambda: batched_ticks("whole_body_rnea", "sequential")))
+    n30, line = phase_n30(dev, ship, spreads, batch)
+    plog(line)
+    sc, sc_launches, line = phase_scaled(dev, spreads, batch)
+    plog(line)
+    b2, b2_launches, line = phase_b2(dev, ship, spreads, batch)
+    plog(line)
+    _, par_launches, line = phase_parity(dev)
+    plog(line)
+
     for tag, what, path, tick_ms, ticks_of in (profiles if args.profile
                                                 else []):
         dev_ms, n_k, wall = profile_ticks(*ticks_of(), path)
@@ -1011,9 +1370,26 @@ def main():
              f"{tick_ms:.2f} without (idle {100 * (1 - dev_ms / tick_ms):.1f}%"
              f" of the unprofiled tick)")
 
-    # ---- 17. kernels ------------------------------------------------------------
+    # ---- 22. kernels ------------------------------------------------------------
     k3_main = next(r for r in k3_rows if (r["K"], r["Bs"]) == (14, 1))
-    k2_main = k2_rows[7168]
+    k2_main = k2_rows["B2G 7168"]
+    # (K1, K2, K3) launches of every path's driven run
+    paths = {"flagship": (k1_launches, k2_launches, 0),
+             "accurate_b1": acc_launches, "accurate_b512": prod_launches,
+             "whole_body_aba": ab_launches, "sequential": sq_launches,
+             "n30_sequential": n30["sequential"][1],
+             "n30_cyclic": n30["cyclic"][1], "scaled": sc_launches,
+             "b2": b2_launches, "parity": par_launches}
+
+    def per_path(i):
+        return {name: n[i] for name, n in paths.items()}
+
+    def k2_row(label):
+        r = k2_rows[label]
+        return {"ms": r["kernel"][0], "call_ms": r["kernel"][1],
+                "plain_ms": r["plain"][0], "plain_call_ms": r["plain"][1],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "forward_ms": r["forward"][0]}
     # ms, plain_ms and library_ms are device ms;
     # *_call_ms the host-inclusive time of one call
     kernels = [
@@ -1029,6 +1405,7 @@ def main():
          "library_call_ms": k1_main["library"][1],
          "at": "B=512 s=105 (cholesky_ex + solve_triangular as library); "
                "launches: flagship, 22 ticks",
+         "path_launches": per_path(0),
          "aba": {"launches": ab_launches[0], "at": "whole_body_aba path, "
                  f"{warm + timed} ticks, per tick 15 at (512, 81), 2 at "
                  f"(7168, 24) (linearize, corrector) and 1 at (14336, 24) "
@@ -1040,6 +1417,7 @@ def main():
                  "library_ms": k1_aba["library"][0],
                  "max_abs_err": k1_aba_err, "shape": [E, nv],
                  "s81": {"ms": k1_81["kernel"][0],
+                         "b2_launches": b2_launches[0],
                          "call_ms": k1_81["kernel"][1],
                          "plain_ms": k1_81["plain"][0],
                          "bound_ms": k1_81["bound"][0],
@@ -1053,9 +1431,17 @@ def main():
          "library_ms": None, "call_ms": k2_main["kernel"][1],
          "plain_call_ms": k2_main["plain"][1],
          "forward_ms": k2_main["forward"][0],
-         "b14": {"ms": k2_rows[14]["kernel"][0],
-                 "call_ms": k2_rows[14]["kernel"][1],
-                 "bound_ms": k2_rows[14]["bound"][0]},
+         "b14": {"ms": k2_rows["B2G 14"]["kernel"][0],
+                 "call_ms": k2_rows["B2G 14"]["kernel"][1],
+                 "bound_ms": k2_rows["B2G 14"]["bound"][0]},
+         "b2": dict(k2_row("B2 7168"), launches=b2_launches[1],
+                    at="B2(payload=front) B=7168 with forces (the general "
+                       "instance, 5 force frames); launches: phase 20"),
+         "n30": dict(k2_row("B2G 15360"),
+                     launches=n30["sequential"][1][1]
+                     + n30["cyclic"][1][1],
+                     at="B2G B=15360 with forces; launches: phase 18"),
+         "path_launches": per_path(1),
          "at": "B=7168 with forces; launches: flagship, 22 ticks",
          "aba": {"launches": ab_launches[1], "at": "whole_body_aba path, "
                  f"{warm + timed} ticks, at B=7168 with forces (timed in "
@@ -1069,6 +1455,7 @@ def main():
          "library_ms": None, "call_ms": k3_main["t"][1],
          "plain_call_ms": k3_main["plain"][1],
          "at": "Bs=1 K=14 s=110; launches: accurate single robot, 22 ticks",
+         "path_launches": per_path(2),
          "aba": {"launches": ab_launches[2]}},
     ]
     log(json.dumps({"kernels": kernels}))

@@ -70,7 +70,7 @@ def test_no_jax_or_reference_imports_in_port_sources():
     assert not hits, hits
 
 
-@pytest.mark.parametrize("name", ["go2", "b2g"])
+@pytest.mark.parametrize("name", ["go2", "b2g", "b2", "b2g_arm_locked"])
 def test_spec_copies_equal_jax_package_files(name):
     """The port reads its own copy of each spec; it must not drift from the
     JAX package's file."""
@@ -84,6 +84,11 @@ def test_spec_copies_equal_jax_package_files(name):
                            name + ".json")) as f:
         ref = json.load(f)
     assert copy == ref
+    with open(os.path.join(PKG, "specs", name + ".json"), "rb") as f:
+        raw = f.read()
+    with open(os.path.join(ROOT, "tpu_locoman", "robots", "specs",
+                           name + ".json"), "rb") as f:
+        assert raw == f.read()  # byte for byte
     assert T.Go2().model.nq == 19 and T.B2G().model.nq == 25
 
 

@@ -22,7 +22,40 @@ and status:
   flip_reset="aba", Go2 N=6, 5 ticks. Each on the hot config with
   "cholinv", batch 2 (target vx 0.2 and (0.1, yaw rate 0.2)), with the
   per-tick results and ``MPC.retract`` of scenario 0's last solution, to
-  tests/data/torch_golden_formulations.json.
+  tests/data/torch_golden_formulations.json;
+- ``--case sequential``: the hot config with the factorizer "sequential"
+  (bench.py's in-code default and the battery's 01_default), batch 2, to
+  tests/data/torch_golden_b2g_n14_seq.json;
+- ``--case scaled``: examples/run_mpc.py's defaults (2 SQP iterations of
+  100 ADMM sweeps, no corrector, 8 line-search trials) with Ruiz scaling
+  (scaling_iters=3) and "cholinv", batch 2, 4 ticks, to
+  tests/data/torch_golden_b2g_n14_scaled.json;
+- ``--case b2``: B2 with the front payload on the hot config with
+  "cholinv", batch 2, to tests/data/torch_golden_b2_front_n14.json;
+- ``--parity-go2``: a parity ABI v1 dump of the JAX package
+  (tools/parity_check.make_dump, Go2 N=6, hot, 5 ticks) to
+  tests/data/torch_parity_go2_n6_hot.json, with the same dump made with
+  "cholinv" and "babe" diffed against it, and their largest errors per
+  quantity (the spread), under "meta";
+- ``--parity-spread T`` (T = 4, see PARITY_B2G_AGAINST): JAX's accurate
+  rollouts of tools/golden_b2g_rnea_n14.json's configuration with
+  "sequential" and "cholinv" over T ticks, held open loop to that dump's
+  states and each diffed against it, with the largest error per
+  quantity, to
+  tests/data/torch_parity_b2g_n14.json, with "cholinv" diffed against
+  "sequential" too, and the "sequential" dump itself to
+  tests/data/torch_parity_b2g_n14_jax_seq.json (the bounds and the second
+  reference of chip_smoke.py's parity phase);
+- ``--agreement NAME``: JAX against itself at batch 8 (targets vx 0 to
+  0.3) over a few ticks, for the agreement bounds of chip_smoke.py's new
+  phases: "flagship" ("sequential" against "cholinv", N=14, 3 ticks) and
+  "n30" ("cyclic" against "sequential", N=30, 3 ticks); written under NAME
+  in tests/data/torch_spreads.json.
+
+With ``--case``, ``--against`` also records its result in the fixture's
+"spread" (which the replays' bounds are set from), and
+``--violation-survey`` records its result under "survey_" + the case in
+tests/data/torch_spreads.json (the yardstick of chip_smoke.py's gates).
 
 Two checks that write nothing, for setting a replay's bounds and gates:
 
@@ -43,8 +76,9 @@ tests/test_torch_formulations_mpc.py). Arrays are stored as base64 of their
 float32/int32 bytes; tpu_locoman_torch.convert.load_golden reads them.
 
     JAX_PLATFORMS=cpu python tools/make_torch_golden.py [--accurate]
-        [--dynamics whole_body_aba] [--formulations] [--against]
-        [--violation-survey]
+        [--dynamics whole_body_aba] [--case sequential|scaled|b2]
+        [--formulations] [--against] [--violation-survey]
+        [--parity-go2] [--parity-spread T] [--agreement flagship|n30]
 """
 
 import argparse
@@ -70,6 +104,37 @@ ACCURATE = dict(SETUP, corrector=0, ls_trials=8, eq_projection=4,
                 targets_vx=[0.2])
 # the forward-dynamics formulation on the hot config
 ABA = dict(SETUP, dynamics="whole_body_aba")
+# --case: (setup, fixture file name, the violation survey's ticks)
+CASES = {
+    "sequential": (dict(SETUP, factorizer="sequential"),
+                   "torch_golden_b2g_n14_seq.json", 12),
+    "scaled": (dict(SETUP, sqp_iters=2, admm_iters=100, corrector=0,
+                    ls_trials=8, scaling_iters=3, ticks=4),
+               "torch_golden_b2g_n14_scaled.json", 5),
+    "b2": (dict(SETUP, robot="B2", robot_kwargs={"payload": "front"}),
+           "torch_golden_b2_front_n14.json", 12),
+}
+SPREADS = os.path.join(DATA, "torch_spreads.json")
+# --agreement: (setup, factorizer, against, ticks)
+AGREEMENT = {
+    "flagship": (dict(SETUP, factorizer="sequential"), "cholinv", 3),
+    "n30": (dict(SETUP, nodes=30, factorizer="cyclic"), "sequential", 3),
+}
+PARITY_GO2 = os.path.join(DATA, "torch_parity_go2_n6_hot.json")
+# the factorizers whose dumps set the Go2 dump's spread: the two besides its
+# own that take the accurate path's products in another order ("cyclic",
+# whose explicit block inverses depart from the others, is left out)
+PARITY_GO2_AGAINST = ("cholinv", "babe")
+PARITY_B2G = os.path.join(DATA, "torch_parity_b2g_n14.json")
+PARITY_B2G_JAX = os.path.join(DATA, "torch_parity_b2g_n14_jax_seq.json")
+# the JAX factorizers whose distance from the golden dump sets the parity
+# bounds. The rollouts are held open loop (every tick solves from the golden
+# dump's state). From tick 4 on, a tick's 6 SQP iterations may take another
+# line-search step under another f32 summation order, and x after the tick
+# then lands 5-7e-3 from the other runs; before it every run agrees within
+# 1.5e-4. So the phase takes T = 4 ticks (--parity-spread 4).
+PARITY_B2G_AGAINST = ("sequential", "cholinv")
+GOLDEN_DUMP = os.path.join(ROOT, "tools", "golden_b2g_rnea_n14.json")
 # --formulations: (case, robot, dynamics, nodes, ticks, flip_reset)
 FORM_CASES = [
     ("go2_aba", "Go2", "whole_body_aba", 3, 3, True),
@@ -106,7 +171,7 @@ def make_mpc(s, factorizer=None):
     import tpu_locoman
     from tpu_locoman import MPC, ADMMConfig, SQPConfig
 
-    robot = getattr(tpu_locoman, s["robot"])()
+    robot = getattr(tpu_locoman, s["robot"])(**s.get("robot_kwargs", {}))
     robot.set_gait_sequence(s["gait"], s["gait_period"])
     return MPC(robot, dynamics=s["dynamics"], nodes=s["nodes"],
                flip_reset=s["flip_reset"], warm_shift=s["warm_shift"],
@@ -116,6 +181,7 @@ def make_mpc(s, factorizer=None):
                                 eq_projection=s.get("eq_projection", 0),
                                 admm=ADMMConfig(
                                     iters=s["admm_iters"],
+                                    scaling_iters=s.get("scaling_iters", 0),
                                     factorizer=factorizer or s["factorizer"])))
 
 
@@ -133,14 +199,18 @@ def rollout(mpc, carry, targets, ticks, dt_min):
         yield k, carry, jax.device_get(stats)
 
 
-def against(path, factorizer=AGAINST):
-    """JAX at another factorizer against the fixture at ``path``."""
+def against(path, factorizer=None, record=False):
+    """JAX at another factorizer (AGAINST, or "cholinv" for a "sequential"
+    fixture) against the fixture at ``path``; with ``record``, the result
+    goes into the fixture's "spread"."""
     import jax
 
     from tpu_locoman_torch.convert import load_golden
 
     gold = load_golden(path)
     s = gold["setup"]
+    if factorizer is None:
+        factorizer = "cholinv" if s["factorizer"] == AGAINST else AGAINST
     mpc = make_mpc(s, factorizer)
     carry = _carry(gold["init"])
     gx = gv = gr = 0.0
@@ -162,6 +232,15 @@ def against(path, factorizer=AGAINST):
     print(f"JAX {factorizer} against the fixture ({s['factorizer']}): x max "
           f"abs err {gx:.6g}, violation max abs err {gv:.6g}, max rel err "
           f"{gr:.6g}, rollout mean rel err {mean_rel:.6g}")
+    if record:
+        with open(path) as f:
+            raw = json.load(f)
+        raw["spread"] = {"factorizer": factorizer, "x": gx, "viol_abs": gv,
+                         "viol_rel": gr, "mean_rel": mean_rel,
+                         "by": "tools/make_torch_golden.py --against"}
+        with open(path, "w") as f:
+            json.dump(raw, f)
+        print("recorded the spread in", path)
 
 
 def violation_survey(s, batch=SURVEY_BATCH, ticks=SURVEY_TICKS):
@@ -178,9 +257,178 @@ def violation_survey(s, batch=SURVEY_BATCH, ticks=SURVEY_TICKS):
         per_tick.append(float(v.mean()))
         print(k, "max_violation mean", per_tick[-1], "worst", float(v.max()),
               "status", np.asarray(st["status"]).tolist(), flush=True)
+    warm = 2 if ticks > 5 else 0
+    mean, worst = float(np.mean(per_tick[warm:])), max(per_tick[warm:])
     print(f"{s['dynamics']} batch {batch}: max_violation mean over ticks "
-          f"2..{ticks - 1} {float(np.mean(per_tick[2:])):.6g}, worst tick "
-          f"{max(per_tick[2:]):.6g}")
+          f"{warm}..{ticks - 1} {mean:.6g}, worst tick {worst:.6g}")
+    return {"batch": batch, "ticks": ticks, "from_tick": warm, "mean": mean,
+            "worst": worst, "per_tick": per_tick}
+
+
+def record_spread(name, entry):
+    """Put ``entry`` under ``name`` in tests/data/torch_spreads.json."""
+    spreads = {}
+    if os.path.exists(SPREADS):
+        with open(SPREADS) as f:
+            spreads = json.load(f)
+    spreads[name] = dict(entry, by="tools/make_torch_golden.py")
+    with open(SPREADS, "w") as f:
+        json.dump(spreads, f, indent=1, sort_keys=True)
+    print("recorded", name, "in", SPREADS)
+
+
+def agreement(name, batch=SURVEY_BATCH):
+    """JAX with the case's factorizer against JAX with the other one at
+    batch ``batch`` (targets vx 0 to 0.3, as chip_smoke.py's agreement
+    checks), over the case's ticks: max |dx| and max |dZ| / (max|Z| + 1)."""
+    import jax
+
+    from tpu_locoman.parallel import batched_init
+
+    s, other, ticks = AGREEMENT[name]
+    targets = np.zeros((batch, 6), np.float32)
+    targets[:, 0] = np.linspace(0.0, 0.3, batch)
+    runs = []
+    for fz in (s["factorizer"], other):
+        mpc = make_mpc(s, fz)
+        runs.append([(np.asarray(jax.device_get(c.x_init)),
+                      np.asarray(jax.device_get(c.solver_state.Z)))
+                     for _, c, _ in rollout(mpc, batched_init(mpc, batch),
+                                            targets, ticks, s["dt_min"])])
+    ex = max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(*runs))
+    ez = max(float(np.abs(a[1] - b[1]).max()) / (float(np.abs(b[1]).max())
+                                                  + 1) for a, b in zip(*runs))
+    print(f"{name}: JAX {s['factorizer']} against JAX {other}, batch {batch}, "
+          f"{ticks} ticks: x {ex:.6g}, Z normalized {ez:.6g}")
+    record_spread(name, {"factorizer": s["factorizer"], "against": other,
+                         "nodes": s["nodes"], "batch": batch, "ticks": ticks,
+                         "x": ex, "Z": ez})
+
+
+def _jax_dump(out_path, factorizer=None, **kw):
+    """tools/parity_check.make_dump, with every ADMMConfig it builds taking
+    ``factorizer`` when one is given (its own default is "auto",
+    "sequential" off the TPU)."""
+    import functools
+
+    import tpu_locoman
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import parity_check
+
+    saved = tpu_locoman.ADMMConfig
+    if factorizer is not None:
+        tpu_locoman.ADMMConfig = functools.partial(saved,
+                                                   factorizer=factorizer)
+    try:
+        parity_check.make_dump(out_path, **kw)
+    finally:
+        tpu_locoman.ADMMConfig = saved
+    with open(out_path) as f:
+        return json.load(f)
+
+
+def parity_go2(tmp):
+    """The Go2 N=6 hot JAX dump ("auto": "sequential" on the CPU), with the
+    dumps of PARITY_GO2_AGAINST diffed against it and, per
+    quantity, the largest of their max abs errors: the spread of JAX
+    against itself."""
+    from tpu_locoman_torch import parity
+
+    kw = dict(ticks=5, hot=True, robot_name="go2", nodes=6)
+    dump = _jax_dump(PARITY_GO2, **kw)
+    against = {fz: parity.diff(_jax_dump(os.path.join(tmp, f"go2_{fz}.json"),
+                                         fz, **kw), dump, warn=False)
+               for fz in PARITY_GO2_AGAINST}
+    dump["meta"] = {
+        "by": "tools/make_torch_golden.py --parity-go2 "
+              "(tools/parity_check.make_dump, factorizer auto)",
+        "against_this": against,
+        "spread": {k: max(d[k]["max_abs_err"] for d in against.values())
+                   for k in against[PARITY_GO2_AGAINST[0]]}}
+    with open(PARITY_GO2, "w") as f:
+        json.dump(dump, f)
+    print("wrote", PARITY_GO2, json.dumps(dump["meta"]["spread"], indent=1))
+
+
+def _jax_open_loop(factorizer, golden, ticks):
+    """tools/parity_check.make_dump's accurate B2G N=14 rollout of the JAX
+    package with ``factorizer``, held open loop: every tick after the first
+    solves from ``golden``'s state after the tick before. Returns the ABI
+    v1 dump (as parity.make_dump(hold=golden) does in the port)."""
+    import jax
+    import jax.numpy as jnp
+
+    from tpu_locoman import B2G, MPC, ADMMConfig, SQPConfig
+    from tpu_locoman_torch import parity
+
+    robot = B2G()
+    robot.set_gait_sequence(parity.GAIT, parity.GAIT_PERIOD)
+    cfg = SQPConfig(sqp_iters=6, eq_projection=2,
+                    admm=ADMMConfig(iters=400, factorizer=factorizer))
+    mpc = MPC(robot, dynamics=parity.DYNAMICS, nodes=14, config=cfg)
+    bvd = jnp.asarray(parity.BASE_VEL_DES, dtype=jnp.float32)
+    step = jax.jit(lambda c, t: mpc.step(c, t, bvd))
+    carry = mpc.init_carry()
+    rec = {"x": [], "max_violation": [],
+           "node0": {k: [] for k in parity.QUANTITIES},
+           "node1": {k: [] for k in parity.QUANTITIES}}
+    for k in range(ticks):
+        if k > 0:
+            carry = carry._replace(x_init=jnp.asarray(golden["x"][k - 1],
+                                                      dtype=jnp.float32))
+        x_solve = carry.x_init
+        carry, stats = step(carry, jnp.float32(k * mpc.dt_min))
+        sol = mpc.retract(carry.solver_state.Z, x_solve, num_steps=2)
+        rec["x"].append(np.asarray(carry.x_init, np.float64).tolist())
+        rec["max_violation"].append(float(stats["max_violation"]))
+        for node in (0, 1):
+            for q in parity.QUANTITIES:
+                rec[f"node{node}"][q].append(
+                    np.asarray(sol[q][node], np.float64).tolist())
+        print(factorizer, k, rec["max_violation"][-1], flush=True)
+    return rec
+
+
+def parity_spread(ticks):
+    """JAX's accurate rollouts with each of PARITY_B2G_AGAINST over
+    ``ticks`` ticks, held open loop to the committed golden dump: each
+    diffed against it, and per quantity the largest of their max abs
+    errors (the spread: the diff entry of the larger); "cholinv" diffed
+    against "sequential" (the spread of JAX against its own dump); and
+    that "sequential" dump, which the port's is also diffed against."""
+    from tpu_locoman_torch import parity
+
+    with open(GOLDEN_DUMP) as f:
+        golden = json.load(f)
+    by = f"tools/make_torch_golden.py --parity-spread {ticks}"
+    out = {"ticks": ticks, "golden": "tools/golden_b2g_rnea_n14.json",
+           "open_loop": True, "by": by, "variants": {}}
+    dumps = {}
+    for fz in PARITY_B2G_AGAINST:
+        dumps[fz] = d = _jax_open_loop(fz, golden, ticks)
+        out["variants"][fz] = {
+            "diff": parity.diff(d, golden, ticks=ticks, warn=False),
+            "max_violation": d["max_violation"]}
+    diffs = [v["diff"] for v in out["variants"].values()]
+    out["spread"] = {k: max((d[k] for d in diffs),
+                            key=lambda e: e["max_abs_err"])
+                     for k in diffs[0]}
+    out["jax_spread"] = parity.diff(dumps["cholinv"], dumps["sequential"],
+                                    warn=False)
+    with open(PARITY_B2G, "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+    seq = dict(abi_version=1, config=dict(golden["config"], ticks=ticks),
+               solver=golden["solver"],
+               t=[k * golden["config"]["dt_min"] for k in range(ticks)],
+               **dumps["sequential"],
+               meta={"by": by, "factorizer": "sequential",
+                     "held_to": "tools/golden_b2g_rnea_n14.json"})
+    with open(PARITY_B2G_JAX, "w") as f:
+        json.dump(seq, f)
+    print("wrote", PARITY_B2G, "and", PARITY_B2G_JAX,
+          json.dumps({"spread": out["spread"],
+                      "jax_spread": out["jax_spread"]}, indent=1))
 
 
 def formulations():
@@ -258,15 +506,27 @@ def main():
     ap.add_argument("--dynamics", default="whole_body_rnea",
                     choices=("whole_body_rnea", "whole_body_aba"),
                     help="formulation of the hot-config fixture")
+    ap.add_argument("--case", choices=tuple(CASES),
+                    help="write (or, with --against / --violation-survey, "
+                         "check) one of the fixtures of the new paths")
+    ap.add_argument("--parity-go2", action="store_true",
+                    help="write the Go2 N=6 hot JAX parity dump")
+    ap.add_argument("--parity-spread", type=int, metavar="T",
+                    help="write JAX's accurate parity spread over T ticks")
+    ap.add_argument("--agreement", choices=tuple(AGREEMENT),
+                    help="record JAX against itself at batch 8")
     ap.add_argument("--formulations", action="store_true",
                     help="write the short rollouts of the other "
                          "formulations (Go2 and B2G, N=3 and 6)")
     ap.add_argument("--against", action="store_true",
                     help=f"replay the fixture with JAX at factorizer "
-                         f"{AGAINST!r} and print the gaps; write nothing")
+                         f"{AGAINST!r} (\"cholinv\" for a {AGAINST!r} "
+                         f"fixture) and print the gaps; with --case, record "
+                         f"them in the fixture")
     ap.add_argument("--violation-survey", action="store_true",
                     help=f"print the max_violation of the configuration at "
-                         f"batch {SURVEY_BATCH}; write nothing")
+                         f"batch {SURVEY_BATCH}; with --case, record it in "
+                         f"tests/data/torch_spreads.json")
     args = ap.parse_args()
     accurate = args.accurate
     out_path = fixture_path(accurate, args.dynamics)
@@ -278,11 +538,28 @@ def main():
 
     s = ACCURATE if accurate else (ABA if args.dynamics == "whole_body_aba"
                                    else SETUP)
+    if args.case:
+        s, name, survey_ticks = CASES[args.case]
+        out_path = os.path.join(DATA, name)
     if args.formulations:
         return formulations()
+    if args.parity_go2:
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            parity_go2(tmp)
+    if args.parity_spread:
+        parity_spread(args.parity_spread)
+    if args.parity_go2 or args.parity_spread:
+        return None
+    if args.agreement:
+        return agreement(args.agreement)
     if args.against:
-        return against(out_path)
+        return against(out_path, record=bool(args.case))
     if args.violation_survey:
+        if args.case:
+            return record_spread("survey_" + args.case,
+                                 violation_survey(s, ticks=survey_ticks))
         return violation_survey(s)
     mpc = make_mpc(s)
     batch = len(s["targets_vx"])

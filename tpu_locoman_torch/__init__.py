@@ -8,8 +8,8 @@ hand-written CUDA for Hopper: K1 (``solver/chol_base.py``), K2
 the card unless the caller passes ``device="cpu"``.
 """
 
-from . import gait, lie, model, rbda  # noqa: F401
+from . import gait, lie, model, rbda, urdf  # noqa: F401
 from .mpc import MPC, MPCCarry, geometric_dts  # noqa: F401
 from .parallel import batched_init, batched_step  # noqa: F401
-from .robots import B2G, Go2, Robot  # noqa: F401
+from .robots import B2, B2G, Go2, Robot  # noqa: F401
 from .solver import ADMMConfig, SQPConfig  # noqa: F401

@@ -4,7 +4,8 @@ PyTorch counterpart of ``RobotModel`` and ``model_from_dict`` in
 ``tpu_locoman/model.py``. The spec arrays load as float64 numpy (as in the
 JAX package); the rigid-body code reads them as float32 tensors on the
 device it runs on (``RobotModel.tensors``), the counterpart of
-``RobotModel.jnp_arrays``. The URDF parser is not ported.
+``RobotModel.jnp_arrays``. ``model_to_dict`` / ``model_from_dict`` are
+the JSON spec format; the URDF/SRDF parser is ``tpu_locoman_torch.urdf``.
 """
 
 from dataclasses import dataclass, field
@@ -113,6 +114,30 @@ class RobotModel:
                 "g_spatial": f32([0.0, 0.0, GRAVITY, 0.0, 0.0, 0.0]),
             }
         return cache[key]
+
+
+def model_to_dict(model):
+    """The JSON spec of a model (plain lists), as ``model_from_dict`` and
+    the JAX package's ``model_from_dict`` read it."""
+    return {
+        "name": model.name,
+        "parent": list(model.parent),
+        "joint_names": list(model.joint_names),
+        "R_tree": model.R_tree.tolist(),
+        "p_tree": model.p_tree.tolist(),
+        "axis": model.axis.tolist(),
+        "mass": model.mass.tolist(),
+        "com": model.com.tolist(),
+        "inertia": model.inertia.tolist(),
+        "frames": {
+            name: {"parent_joint": fr.parent_joint, "R": fr.R.tolist(),
+                   "p": fr.p.tolist()}
+            for name, fr in model.frames.items()
+        },
+        "reference_configurations": {
+            k: v.tolist() for k, v in model.reference_configurations.items()
+        },
+    }
 
 
 def model_from_dict(d):

@@ -1,8 +1,10 @@
-"""Robot definitions: Go2 and B2G (+Z1 arm), built from the JSON specs.
+"""Robot definitions: Go2, B2 and B2G (+Z1 arm), built from the JSON specs.
 
 PyTorch counterpart of ``tpu_locoman/robots/__init__.py``. The port keeps
-its own byte-for-byte copies of the JAX package's ``go2.json`` and
-``b2g.json`` in ``tpu_locoman_torch/specs/`` (a test holds them equal).
+its own byte-for-byte copies of the JAX package's specs (``go2.json``,
+``b2.json``, ``b2g.json`` and ``b2g_arm_locked.json``) in
+``tpu_locoman_torch/specs/`` (a test holds them equal). A robot of one's
+own is built from its URDF/SRDF with ``tpu_locoman_torch.urdf``.
 """
 
 import json
@@ -68,28 +70,48 @@ class Go2(Robot):
         self.joint_torque_max = np.tile([23.7, 23.7, 45.43], 4)
 
 
+class B2(Robot):
+    """12-DoF Unitree B2, with an optional payload force at the front or
+    rear payload frame."""
+
+    def __init__(self, reference_pose="standing", payload=None,
+                 use_quaternion=True):
+        if payload not in (None, "front", "rear"):
+            raise ValueError(f"payload must be None, 'front' or 'rear', got "
+                             f"{payload!r}")
+        super().__init__(load_spec("b2"), reference_pose,
+                         use_quaternion=use_quaternion)
+        self.joint_pos_min = np.tile([-0.87, -0.94, -2.82], 4)
+        self.joint_pos_max = np.tile([0.87, 4.69, -0.43], 4)
+        self.joint_vel_max = np.tile([23.0, 23.0, 14.0], 4)
+        self.joint_torque_max = np.tile([200, 200, 320], 4)
+        if payload is not None:
+            self.ext_force_frame = f"payload_joint_{payload}"
+            self.nf += 3
+
+
 class B2G(Robot):
-    """B2 + Z1 arm with the gripper joint locked. ``ignore_arm=True`` (the
-    whole arm locked) waits for a later slice."""
+    """B2 + Z1 arm with the gripper joint locked; ``ignore_arm=True`` locks
+    the whole arm (the ``b2g_arm_locked`` spec: no arm limits, no gripper
+    force)."""
 
     def __init__(self, reference_pose="standing_with_arm_up", ignore_arm=False,
                  use_quaternion=True):
+        super().__init__(load_spec("b2g_arm_locked" if ignore_arm else "b2g"),
+                         reference_pose, use_quaternion=use_quaternion)
+        self.joint_pos_min = np.tile([-0.87, -0.94, -2.82], 4)
+        self.joint_pos_max = np.tile([0.87, 4.69, -0.43], 4)
+        self.joint_vel_max = np.tile([23.0, 23.0, 14.0], 4)
+        self.joint_torque_max = np.tile([200, 200, 320], 4)
         if ignore_arm:
-            raise NotImplementedError(
-                "B2G(ignore_arm=True) is not ported yet (ROADMAP queue 1, "
-                "item 14)")
-        super().__init__(load_spec("b2g"), reference_pose,
-                         use_quaternion=use_quaternion)
+            return
         self.ext_force_frame = "gripperStator"
         self.arm_ee_frame = "gripperStator"
         self.nf += 3
         self.joint_pos_min = np.concatenate((
-            np.tile([-0.87, -0.94, -2.82], 4),
-            [-2.62, 0.0, -2.88, -1.52, -1.34, -2.79]))
+            self.joint_pos_min, [-2.62, 0.0, -2.88, -1.52, -1.34, -2.79]))
         self.joint_pos_max = np.concatenate((
-            np.tile([0.87, 4.69, -0.43], 4),
-            [2.62, 2.97, 0.0, 1.52, 1.34, 2.79]))
-        self.joint_vel_max = np.concatenate((
-            np.tile([23.0, 23.0, 14.0], 4), [3.14] * 6))
+            self.joint_pos_max, [2.62, 2.97, 0.0, 1.52, 1.34, 2.79]))
+        self.joint_vel_max = np.concatenate((self.joint_vel_max, [3.14] * 6))
         self.joint_torque_max = np.concatenate((
-            np.tile([200, 200, 320], 4), [30, 60, 30, 30, 30, 30]))
+            self.joint_torque_max, [30, 60, 30, 30, 30, 30]))

@@ -1,34 +1,42 @@
 """Stagewise QP: OSQP-semantics ADMM over the block-tridiagonal KKT.
 
-PyTorch counterpart of ``tpu_locoman/solver/qp.py`` on the
-``scaling_iters=0`` path: ``assemble_blocks`` (propagation-pattern C), the
-recursive ``chol_inv`` (on the card: each node block whole in one launch of
-kernel K1), ``factorize`` with skinny couplings, the whole-horizon
-factorization of kernel K3 (``factorizer="pallas"``, ``fac_whole.py``),
-the two-chain BABE factorizer,
-``solve_factorized`` / ``solve_babe``, the box-row matvecs, ``prepare`` /
-``run_iters`` / ``admm_solve`` with the equality-polish phase, and the
-accurate-mode closers ``kkt_polish`` and ``eq_project``. Every tensor
-carries the scenario axis first: G (Bs, N, m, ndx), P_diag (Bs, N+1, s), ...
+PyTorch counterpart of ``tpu_locoman/solver/qp.py``: ``assemble_blocks``
+(the propagation-pattern C with skinny couplings, or a general C with a
+dense D), the recursive ``chol_inv`` (on the card: each node block whole in
+one launch of kernel K1), ``factorize`` ("cholinv", "cholinv_pb" and the
+panel Cholesky of "blocked", the "sequential" factorizer), the
+whole-horizon factorization of kernel K3 (``factorizer="pallas"``,
+``fac_whole.py``), the two-chain BABE factorizer, block cyclic reduction
+(``factorizer="cyclic"``, ``blocked.py``), ``solve_factorized`` /
+``solve_babe`` / ``solve_cyclic``, the box-row matvecs, Ruiz
+equilibration, ``prepare`` / ``run_iters`` / ``admm_solve`` with the
+scaling path and the equality-polish phase, and the accurate-mode closers
+``kkt_polish`` and ``eq_project``. Every tensor carries the scenario axis
+first: G (Bs, N, m, ndx), P_diag (Bs, N+1, s), ...
 
 The recursion's panel products (CPU path), the Schur updates and the ADMM
 sweeps are plain batched products (left to XLA in the JAX package, to
 cuBLAS here).
-Not ported yet (ROADMAP queue 1, item 12): Ruiz scaling, bf16 storage, and
-the sequential and cyclic factorizers.
+Not ported: bf16 storage of the matvec operator and of the factor (the
+port computes in float32 only; the reference records both as diverging or
+not worth it).
 """
 
 from typing import NamedTuple
 
 import torch
 
+from .blocked import (CyclicFactor, chol_blocked, factorize_cyclic,
+                      solve_cyclic, tri_inverse_lower)
 from .chol_base import (MAX_S, chol_base_unrolled, chol_inv_base_plain,
                         chol_inv_node, tri_inv_doubling)
 from .fac_whole import factorize_whole
 
 #: the factorizers the port has; "auto" is "cholinv_pb" on CUDA tensors and
-#: "cholinv" on CPU tensors
-FACTORIZERS = ("auto", "cholinv", "cholinv_pb", "pallas", "babe", "babe_pb")
+#: "sequential" on CPU tensors, as the reference resolves it on and off the
+#: TPU
+FACTORIZERS = ("auto", "sequential", "cholinv", "cholinv_pb", "pallas",
+               "babe", "babe_pb", "cyclic")
 
 
 class _ADMMFields(NamedTuple):
@@ -45,10 +53,13 @@ class _ADMMFields(NamedTuple):
     # kernel K1 on CUDA tensors, and by the recursion with plain leaves on
     # CPU tensors; "cholinv" runs the recursion in plain torch on any
     # device (chol_base sets its leaf width; see chol_inv);
-    # "pallas" runs each scenario's whole factorization as one launch of
-    # kernel K3; "babe" / "babe_pb" eliminate the horizon from both ends
-    # (leaves as "cholinv" / "cholinv_pb"). Every product is full float32
-    # (TF32 is off for the solve).
+    # "sequential" factors each node by the library Cholesky in panels
+    # (chol_blocked); "pallas" runs each scenario's whole factorization as
+    # one launch of kernel K3; "babe" / "babe_pb" eliminate the horizon
+    # from both ends (leaves as "cholinv" / "cholinv_pb"); "cyclic" is
+    # block cyclic reduction; "auto" is "cholinv_pb" on CUDA tensors and
+    # "sequential" on CPU ones. Every product is full float32 (TF32 is off
+    # for the solve).
     factorizer: str = "cholinv_pb"
     chol_base: int = 16
     assemble_precision: str = "highest"
@@ -92,51 +103,60 @@ class BlockTridiagFactor(NamedTuple):
 
 
 class QPWork(NamedTuple):
-    fac: BlockTridiagFactor
+    """The factor, A (Bs, N, m, s), D (the int k of the propagation
+    pattern, or (Bs, N, m, s)) and the per-row rho."""
+
+    fac: tuple
     A: torch.Tensor
-    D: int
+    D: object
     rho_vec: torch.Tensor
 
 
 def _check_config(cfg):
     _check_precision(cfg)  # also for a config made by _replace
-    if cfg.scaling_iters > 0:
-        raise NotImplementedError(
-            "ADMMConfig.scaling_iters > 0 is not ported yet (ROADMAP queue 1, "
-            "item 12)")
     if cfg.matvec_dtype != "float32" or cfg.factor_dtype != "float32":
         raise NotImplementedError(
-            "only float32 matvec/factor storage is ported")
+            "only float32 matvec/factor storage is ported: the port "
+            "computes in float32 only")
     if cfg.factorizer not in FACTORIZERS:
-        raise NotImplementedError(
-            f"factorizer {cfg.factorizer!r} is not ported yet (ROADMAP queue "
-            f"1, item 12)")
+        raise ValueError(f"unknown factorizer {cfg.factorizer!r}; the port "
+                         f"has {FACTORIZERS}")
 
 
 def assemble_blocks(G, B, C, P_diag, rho_vec, sigma, box_idx=None,
                     c_eye_rows=None):
-    """Tridiagonal blocks of M = P + sigma I + A^T diag(rho) A for the
-    constant propagation pattern C (row r = e_r for r < c_eye_rows).
-    Returns H (Bs, N+1, s, s), U (Bs, N, s, k), A (Bs, N, m, s) and k."""
-    if c_eye_rows is None:
-        raise NotImplementedError(
-            "assemble_blocks needs the propagation-pattern C (c_eye_rows)")
+    """Tridiagonal blocks of M = P + sigma I + A^T diag(rho) A. Returns
+    H (Bs, N+1, s, s), U, A (Bs, N, m, s) and D.
+
+    With c_eye_rows = k, C is the constant propagation pattern (row r =
+    e_r for r < k): U is the skinny (Bs, N, s, k) and D the int k. Without
+    it, C is general: D = [C 0] (Bs, N, m, s) and U = A^T diag(rho) D is
+    full (Bs, N, s, s)."""
     N, m = G.shape[1], G.shape[2]
     s = G.shape[3] + B.shape[3]
     A = torch.cat([G, B], dim=-1)
     rho_dense = rho_vec[..., :m]
     rA = rho_dense[..., None] * A
     AtA = torch.einsum("bnms,bnmt->bnst", rA, A)
-    k = c_eye_rows
-    diag = (P_diag + sigma).clone()
-    diag[:, 1:, :k] += rho_dense[..., :k]
-    if box_idx is not None:
-        diag[:, :N, box_idx] += rho_vec[..., m:]
     H = torch.cat([AtA, AtA.new_zeros(AtA.shape[0], 1, s, s)], dim=1)
-    idx = torch.arange(s, device=G.device)
-    H[..., idx, idx] += diag
-    U = rA[:, :, :k, :].transpose(-1, -2)
-    return H, U, A, k
+    if c_eye_rows is not None:
+        k = c_eye_rows
+        diag = (P_diag + sigma).clone()
+        diag[:, 1:, :k] += rho_dense[..., :k]
+        if box_idx is not None:
+            diag[:, :N, box_idx] += rho_vec[..., m:]
+        idx = torch.arange(s, device=G.device)
+        H[..., idx, idx] += diag
+        U = rA[:, :, :k, :].transpose(-1, -2)
+        return H, U, A, k
+    H = H + torch.diag_embed(P_diag + sigma)
+    if box_idx is not None:
+        H[:, :N, box_idx, box_idx] += rho_vec[..., m:]
+    D = torch.cat([C, C.new_zeros(C.shape[:-1] + (s - C.shape[-1],))], -1)
+    DtD = torch.einsum("bnms,bnmt->bnst", rho_dense[..., None] * D, D)
+    U = torch.einsum("bnms,bnmt->bnst", rA, D)
+    H[:, 1:] += DtD
+    return H, U, A, D
 
 
 def _split(s):
@@ -186,14 +206,21 @@ def chol_inv(S, base=16, base_impl="torch"):
     return L, Linv
 
 
-def factorize(H, U, chol_impl="cholinv_pb", base=16):
+def factorize(H, U, chol_impl="cholinv_pb", base=16, u_cols=None):
     """Blocked Cholesky of the tridiagonal M, node by node.
-    H (Bs, N+1, s, s), U (Bs, N, s, k)."""
-    if chol_impl not in ("cholinv", "cholinv_pb"):
-        raise NotImplementedError(f"chol_impl {chol_impl!r} is not ported yet")
+    H (Bs, N+1, s, s), U (Bs, N, s, k).
+
+    chol_impl: "cholinv" / "cholinv_pb" the recursive chol_inv (leaves in
+    plain torch / the whole node in K1 on the card), "blocked" the panel
+    Cholesky and the doubling triangular inverse (the "sequential"
+    factorizer). u_cols: the count k of U's live columns, when only
+    U[..., :k] is nonzero."""
+    if chol_impl not in ("cholinv", "cholinv_pb", "blocked"):
+        raise ValueError(f"unknown chol_impl {chol_impl!r}")
     base_impl = "kernel" if chol_impl == "cholinv_pb" else "torch"
     Bs, K, s = H.shape[0], H.shape[1], H.shape[2]
-    k = U.shape[-1]
+    k = U.shape[-1] if u_cols is None else u_cols
+    U = U[..., :k]
     eye = 1e-6 * torch.eye(s, dtype=H.dtype, device=H.device)
     prev_F = H.new_zeros(Bs, s, k)
     Linvs, Fs = [], []
@@ -201,7 +228,10 @@ def factorize(H, U, chol_impl="cholinv_pb", base=16):
         S = H[:, i].clone()
         S[:, :k, :k] -= prev_F.transpose(-1, -2) @ prev_F
         S = S + eye
-        _, Linv_i = chol_inv(S, base, base_impl)
+        if chol_impl == "blocked":
+            Linv_i = tri_inverse_lower(chol_blocked(S))
+        else:
+            _, Linv_i = chol_inv(S, base, base_impl)
         F_i = (Linv_i @ U[:, i] if i < K - 1 else H.new_zeros(Bs, s, k))
         Linvs.append(Linv_i)
         Fs.append(F_i)
@@ -330,9 +360,14 @@ def solve_babe(fac, b):
 
 
 def _A_matvec(A, D, X, box_idx=None):
-    """w_i = A_i s_i + D_i s_{i+1} (+ box selector rows); X (Bs, N+1, s)."""
-    out = _bmv(A, X[:, :-1]).clone()
-    out[..., :D] += X[:, 1:, :D]
+    """w_i = A_i s_i + D_i s_{i+1} (+ box selector rows); X (Bs, N+1, s).
+    D is the int k of the propagation pattern (a slice) or dense."""
+    out = _bmv(A, X[:, :-1])
+    if isinstance(D, int):
+        out = out.clone()
+        out[..., :D] += X[:, 1:, :D]
+    else:
+        out = out + _bmv(D, X[:, 1:])
     if box_idx is not None:
         out = torch.cat([out, X[:, :-1][..., box_idx]], dim=-1)
     return out
@@ -343,10 +378,45 @@ def _At_matvec(A, D, W, box_idx=None):
     Bs, N, md, s = A.shape
     out = W.new_zeros(Bs, N + 1, s)
     out[:, :-1] += _bmv(A.transpose(-1, -2), W[..., :md])
-    out[:, 1:, :D] += W[..., :D]
+    if isinstance(D, int):
+        out[:, 1:, :D] += W[..., :D]
+    else:
+        out[:, 1:] += _bmv(D.transpose(-1, -2), W[..., :md])
     if box_idx is not None:
         out[:, :-1, box_idx] += W[..., md:]
     return out
+
+
+def ruiz_equilibrate(G, B, C, P_diag, iters):
+    """Modified Ruiz equilibration of [P A^T; A 0] on the stage blocks
+    (port of ``ruiz_equilibrate``): row scalings E (Bs, N, m) and column
+    scalings Dc (Bs, N+1, s). Column j of stage i meets P's diagonal, node
+    i's rows through [G_i B_i] and (its dx part) node i-1's rows through
+    C_{i-1}. A row or column whose norm is zero keeps its unit scale:
+    amplifying a masked row would blow up its stored dual when the contact
+    schedule brings it back."""
+    Bs, N, m, ndx = G.shape
+    s = ndx + B.shape[-1]
+    E = G.new_ones(Bs, N, m)
+    Dc = G.new_ones(Bs, N + 1, s)
+    GB = torch.cat([G, B], dim=-1)
+    for _ in range(iters):
+        A = GB * E[..., None] * Dc[:, :-1, None, :]
+        D = C * E[..., None] * Dc[:, 1:, None, :ndx]
+        row_norm = torch.maximum(A.abs().amax(-1), D.abs().amax(-1))
+        E_new = torch.where(row_norm > 1e-8,
+                            E / torch.sqrt(torch.clamp(row_norm, min=1e-8)),
+                            E)
+        E_new = torch.clamp(E_new, 1e-4, 1e4)
+        col = G.new_zeros(Bs, N + 1, s)
+        col[:, :-1] = torch.maximum(col[:, :-1], A.abs().amax(-2))
+        col[:, 1:, :ndx] = torch.maximum(col[:, 1:, :ndx], D.abs().amax(-2))
+        col = torch.maximum(col, P_diag.abs() * Dc * Dc)
+        Dc_new = torch.where(col > 1e-8,
+                             Dc / torch.sqrt(torch.clamp(col, min=1e-8)), Dc)
+        Dc_new = torch.clamp(Dc_new, 1e-4, 1e4)
+        E, Dc = E_new, Dc_new
+    return E, Dc
 
 
 def _rho_vec(l, u, cfg):
@@ -356,24 +426,28 @@ def _rho_vec(l, u, cfg):
 
 
 def _factorize_by_name(H, U, factorizer="auto", base=16):
-    """Factorizer dispatch shared by prepare and eq_project. "pallas" takes
-    the full-width coupling U (Bs, K-1, s, s)."""
+    """Factorizer dispatch shared by prepare and eq_project. "pallas" and
+    "cyclic" take the full-width coupling U (Bs, K-1, s, s)."""
     if factorizer == "auto":
-        factorizer = "cholinv_pb" if H.is_cuda else "cholinv"
+        factorizer = "cholinv_pb" if H.is_cuda else "sequential"
     if factorizer == "pallas":
         return factorize_whole(H, U)
+    if factorizer == "cyclic":
+        return factorize_cyclic(H, U)
     if factorizer in ("babe", "babe_pb"):
         return factorize_babe(
             H, U, chol_impl="cholinv_pb" if factorizer == "babe_pb"
             else "cholinv", base=base)
     if factorizer in ("cholinv", "cholinv_pb"):
         return factorize(H, U, chol_impl=factorizer, base=base)
-    raise NotImplementedError(
-        f"factorizer {factorizer!r} is not ported yet (ROADMAP queue 1, "
-        f"item 12)")
+    if factorizer == "sequential":
+        return factorize(H, U, chol_impl="blocked")
+    raise ValueError(f"unknown factorizer {factorizer!r}")
 
 
 def _solver_for(fac):
+    if isinstance(fac, CyclicFactor):
+        return solve_cyclic
     return solve_babe if isinstance(fac, BabeFactor) else solve_factorized
 
 
@@ -427,13 +501,9 @@ def _At_lam(A, D, lam):
 def kkt_polish(G, B, C, P_diag, q, l, u, z, box_idx=None, sigma=1e-6,
                delta=1e-7, act_tol=1e-5):
     """OSQP-style polish: the exact equality-KKT solve on the active set
-    (port of ``kkt_polish``); returns the polished step d (Bs, N+1, s).
-
-    The JAX package factorizes the constraint-space Schur complement with
-    its "blocked" Cholesky (XLA's loop Cholesky by panels, ROADMAP item 12).
-    The port takes its "cholinv" factorization on CPU tensors and
-    "cholinv_pb" (K1, one launch per node) on CUDA tensors: the same
-    factor, with the f32 sums in another order."""
+    (port of ``kkt_polish``); returns the polished step d (Bs, N+1, s). The
+    constraint-space Schur complement is factorized with the panel
+    Cholesky ("blocked"), as the reference does, on every device."""
     m = G.shape[2]
     ld, ud, zd = l[..., :m], u[..., :m], z[..., :m]
     eq = (ud - ld) < 1e-7
@@ -447,8 +517,7 @@ def kkt_polish(G, B, C, P_diag, q, l, u, z, box_idx=None, sigma=1e-6,
     # S lam = -(A Pinv q + r)  (KKT: P d + q + A^T lam = 0, A d = r)
     rhs = -(torch.einsum("bnms,bns->bnm", APi, q[:, :-1])
             + torch.einsum("bnms,bns->bnm", DPi, q[:, 1:]) + W * r)
-    fac = factorize(S_diag, S_off,
-                    chol_impl="cholinv_pb" if S_diag.is_cuda else "cholinv")
+    fac = factorize(S_diag, S_off, chol_impl="blocked")
     lam = solve_factorized(fac, rhs * dscale) * dscale
     return -Pinv * (q + _At_lam(A, D, lam))
 
@@ -460,7 +529,9 @@ def eq_project(G, B, C, P_diag, resid, W, sigma=1e-6, delta=1e-7, refine=2,
     conditioning measures): the metric inverse clamped to a 1e4 spread
     around its median, the masked rows normalized, one constraint-space
     block-tridiagonal factorization (K3 at (N, m) under "pallas") and two
-    rounds of iterative refinement reusing it.
+    rounds of iterative refinement reusing it. A cyclic factor does not
+    take the refinement's solves, so "cyclic" factorizes "sequential" here,
+    as in the reference.
 
     W (Bs, N, m) 0/1 mask of the rows to enforce; resid (Bs, N, m) their
     desired values. Returns delta (Bs, N+1, s)."""
@@ -481,7 +552,9 @@ def eq_project(G, B, C, P_diag, resid, W, sigma=1e-6, delta=1e-7, refine=2,
         out[:, 1:] += _bmv(S_off.transpose(-1, -2), lam[:, :-1])
         return out
 
-    fac = _factorize_by_name(S_diag, S_off, factorizer, base=base)
+    fac = _factorize_by_name(
+        S_diag, S_off, "sequential" if factorizer == "cyclic" else factorizer,
+        base=base)
     solve = _solver_for(fac)
     lam = solve(fac, rhs)
     for _ in range(refine):
@@ -499,8 +572,8 @@ def prepare(G, B, C, P_diag, l, u, cfg, box_idx=None, rho_vec=None,
     H, U, A, D = assemble_blocks(G, B, C, P_diag, rho_vec, cfg.sigma,
                                  box_idx=box_idx, c_eye_rows=c_eye_rows)
     s = H.shape[-1]
-    if cfg.factorizer == "pallas" and U.shape[-1] < s:
-        # K3 takes the full-width coupling block
+    if cfg.factorizer in ("pallas", "cyclic") and U.shape[-1] < s:
+        # these factorizers take the full-width coupling block
         U = torch.cat([U, U.new_zeros(U.shape[:-1] + (s - U.shape[-1],))],
                       dim=-1)
     fac = _factorize_by_name(H, U, cfg.factorizer, base=cfg.chol_base)
@@ -527,10 +600,42 @@ def run_iters(work, q, l, u, cfg, x, z, y, iters, box_idx=None):
 def admm_solve(G, B, C, P_diag, q, l, u, cfg, x0=None, z0=None, y0=None,
                box_idx=None, return_work=False, c_eye_rows=None):
     """min 1/2 d^T P d + q^T d  s.t.  l <= A d <= u, per scenario.
-    Returns (d, z, y) [and the QPWork when return_work]."""
+    Returns (d, z, y) [and the QPWork when return_work].
+
+    With cfg.scaling_iters > 0 the problem is Ruiz-equilibrated first: rho
+    comes from the unscaled bounds, C counts as general (the scaled C is no
+    longer the propagation pattern), the box rows take E = 1/Dc at their
+    slot so that their unscaled bounds stay exact, the warm starts are
+    scaled on the way in and the solution unscaled on the way out. The
+    QPWork would then be in scaled units, so return_work requires
+    scaling_iters == 0."""
     _check_config(cfg)
+    if return_work and cfg.scaling_iters > 0:
+        raise ValueError(
+            "admm_solve(return_work=True) requires scaling_iters == 0: "
+            "corrector steps reuse the factorization in problem units")
+    # per-row penalty from the unscaled bounds (OSQP boosts the equalities)
+    rho_vec = _rho_vec(l, u, cfg)
+    E = Dc = None
+    if cfg.scaling_iters > 0:
+        c_eye_rows = None
+        m, ndx = G.shape[2], G.shape[3]
+        E, Dc = ruiz_equilibrate(G, B, C, P_diag, cfg.scaling_iters)
+        if box_idx is not None:
+            E = torch.cat([E, 1.0 / Dc[:, :-1][..., box_idx]], dim=-1)
+        Ed = E[..., :m, None]
+        G = G * Ed * Dc[:, :-1, None, :ndx]
+        B = B * Ed * Dc[:, :-1, None, ndx:]
+        C = C * Ed * Dc[:, 1:, None, :ndx]
+        P_diag = P_diag * Dc * Dc
+        q = q * Dc
+        l = l * E
+        u = u * E
+        x0 = None if x0 is None else x0 / Dc
+        z0 = None if z0 is None else z0 * E
+        y0 = None if y0 is None else y0 / E
     work = prepare(G, B, C, P_diag, l, u, cfg, box_idx=box_idx,
-                   c_eye_rows=c_eye_rows)
+                   rho_vec=rho_vec, c_eye_rows=c_eye_rows)
     x = torch.zeros_like(q) if x0 is None else x0
     z = torch.zeros_like(l) if z0 is None else z0
     y = torch.zeros_like(l) if y0 is None else y0
@@ -544,4 +649,6 @@ def admm_solve(G, B, C, P_diag, q, l, u, cfg, x0=None, z0=None, y0=None,
                          rho_vec=rho_p, c_eye_rows=c_eye_rows)
         x, z, y = run_iters(work_p, q, l, u, cfg, x, z, y, cfg.polish_iters,
                             box_idx)
+    if E is not None:
+        x, z, y = x * Dc, z / E, y * E
     return ((x, z, y), work) if return_work else (x, z, y)

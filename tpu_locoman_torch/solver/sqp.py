@@ -178,10 +178,14 @@ class SQPSolver:
                 admm_cfg = admm_cfg._replace(iters=cfg.admm_schedule[it])
             g, G, Bm, C = t.linearize(Z, sp, shared)
             q = t.objective_gradient(Z, obj)
-            (d, z_admm, y_admm), work = admm_solve(
+            # the corrector reuses the last iteration's factorization (in
+            # problem units: admm_solve refuses it under Ruiz scaling)
+            want_work = cfg.corrector_iters > 0 and it == cfg.sqp_iters - 1
+            out = admm_solve(
                 G, Bm, C, P_diag, q, l_b - g, u_b - g, admm_cfg, z0=z_admm,
-                y0=y_admm, box_idx=box, return_work=True,
+                y0=y_admm, box_idx=box, return_work=want_work,
                 c_eye_rows=t.c_eye_rows)
+            (d, z_admm, y_admm), work = out if want_work else (out, None)
             if cfg.kkt_polish:
                 d = kkt_polish(G, Bm, C, P_diag, q, l_b - g, u_b - g, z_admm)
             # a failed QP (NaN) is a zero step, not a poisoned iterate
