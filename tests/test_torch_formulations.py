@@ -355,11 +355,28 @@ def test_factory_dims_weights_all_formulations(name):
     ("whole_body_acc", {"include_base": False}),
     ("whole_body_rnea", {"include_acc": False})])
 def test_unported_variants_name_their_item(dyn, kwargs):
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        make_formulation(dyn, _robot("Go2"), **kwargs)
+    """The variants that raised NotImplementedError naming ROADMAP item 13b
+    until they were ported: each now builds with the JAX package's layout
+    and no split linearize (tests/test_torch_variants.py holds them
+    against JAX)."""
+    trob, jrob = _robot("Go2"), getattr(J, "Go2")()
+    jrob.set_gait_sequence("trot", 0.8)
+    form, ref = make_formulation(dyn, trob, **kwargs), jmake(dyn, jrob,
+                                                             **kwargs)
+    for attr in ("nx", "ndx", "nu", "n_dyn", "n_prop_rows", "f_idx",
+                 "tau_idx"):
+        assert getattr(form, attr) == getattr(ref, attr), (dyn, attr)
+    assert form.dyn_nl_idx() is None and ref.dyn_nl_idx() is None
+    assert (form.dx_next_pattern() is None) == (ref.dx_next_pattern()
+                                                is None)
 
 
 @pytest.mark.parametrize("name", ROBOTS)
 def test_euler_base_chart_names_its_item(name):
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        getattr(T, name)(use_quaternion=False)
+    """The Euler-ZYX base, which raised NotImplementedError naming item 13b
+    until it was ported, builds as the JAX package's does
+    (tests/test_torch_euler.py holds it against JAX)."""
+    trob, jrob = (getattr(m, name)(use_quaternion=False) for m in (T, J))
+    assert trob.model.base_type == jrob.model.base_type == "euler_zyx"
+    assert (trob.nq, trob.nv) == (jrob.nq, jrob.nv)
+    np.testing.assert_allclose(trob.q0, jrob.q0, atol=1e-12)

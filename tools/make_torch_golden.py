@@ -32,6 +32,18 @@ and status:
   tests/data/torch_golden_b2g_n14_scaled.json;
 - ``--case b2``: B2 with the front payload on the hot config with
   "cholinv", batch 2, to tests/data/torch_golden_b2_front_n14.json;
+- ``--case rnea_noacc|acc_nobase|euler``: the formulation variants on the
+  hot config with "cholinv", batch 2: whole_body_rnea(include_acc=False),
+  whole_body_acc(include_base=False) and B2G(use_quaternion=False)
+  whole_body_rnea, to tests/data/torch_golden_b2g_n14_NAME.json (their
+  surveys over 7 ticks: chip_smoke.py's 2 warm-up and 5 timed);
+- ``--variants``: short rollouts of the variants for the CPU tests
+  (tests/test_torch_variants.py): Go2 N=3, 3 ticks, batch 2, the four
+  whole-stage variants (include_base=False for centroidal_vel,
+  centroidal_acc and whole_body_acc; whole_body_rnea with
+  include_acc=False) and the Euler base with whole_body_rnea and
+  centroidal_acc, with ``MPC.retract`` of scenario 0's last solution where
+  the JAX package has one, to tests/data/torch_golden_variants.json;
 - ``--parity-go2``: a parity ABI v1 dump of the JAX package
   (tools/parity_check.make_dump, Go2 N=6, hot, 5 ticks) to
   tests/data/torch_parity_go2_n6_hot.json, with the same dump made with
@@ -76,8 +88,9 @@ tests/test_torch_formulations_mpc.py). Arrays are stored as base64 of their
 float32/int32 bytes; tpu_locoman_torch.convert.load_golden reads them.
 
     JAX_PLATFORMS=cpu python tools/make_torch_golden.py [--accurate]
-        [--dynamics whole_body_aba] [--case sequential|scaled|b2]
-        [--formulations] [--against] [--violation-survey]
+        [--dynamics whole_body_aba]
+        [--case sequential|scaled|b2|rnea_noacc|acc_nobase|euler]
+        [--formulations] [--variants] [--against] [--violation-survey]
         [--parity-go2] [--parity-spread T] [--agreement flagship|n30]
 """
 
@@ -113,6 +126,15 @@ CASES = {
                "torch_golden_b2g_n14_scaled.json", 5),
     "b2": (dict(SETUP, robot="B2", robot_kwargs={"payload": "front"}),
            "torch_golden_b2_front_n14.json", 12),
+    # the formulation variants, surveyed over chip_smoke.py's ticks of
+    # them (2 warm-up and 5 timed)
+    "rnea_noacc": (dict(SETUP, form_kwargs={"include_acc": False}),
+                   "torch_golden_b2g_n14_rnea_noacc.json", 7),
+    "acc_nobase": (dict(SETUP, dynamics="whole_body_acc",
+                        form_kwargs={"include_base": False}),
+                   "torch_golden_b2g_n14_acc_nobase.json", 7),
+    "euler": (dict(SETUP, robot_kwargs={"use_quaternion": False}),
+              "torch_golden_b2g_n14_euler.json", 7),
 }
 SPREADS = os.path.join(DATA, "torch_spreads.json")
 # --agreement: (setup, factorizer, against, ticks)
@@ -145,6 +167,16 @@ FORM_CASES = [
     ("go2_rnea_flip_aba", "Go2", "whole_body_rnea", 6, 5, "aba"),
 ]
 FORM_TARGETS = [[0.2, 0, 0, 0, 0, 0], [0.1, 0, 0, 0, 0, 0.2]]
+# --variants: (case, robot keyword arguments, dynamics, formulation keyword
+# arguments), Go2 N=3, 3 ticks each
+VARIANT_CASES = [
+    ("go2_rnea_noacc", {}, "whole_body_rnea", {"include_acc": False}),
+    ("go2_acc_nobase", {}, "whole_body_acc", {"include_base": False}),
+    ("go2_cacc_nobase", {}, "centroidal_acc", {"include_base": False}),
+    ("go2_cvel_nobase", {}, "centroidal_vel", {"include_base": False}),
+    ("go2_euler_rnea", {"use_quaternion": False}, "whole_body_rnea", {}),
+    ("go2_euler_cacc", {"use_quaternion": False}, "centroidal_acc", {}),
+]
 # --against: the factorizer JAX is held against itself with
 AGAINST = "sequential"
 # --violation-survey: a small batch, over the ticks of chip_smoke.py's
@@ -175,6 +207,7 @@ def make_mpc(s, factorizer=None):
     robot.set_gait_sequence(s["gait"], s["gait_period"])
     return MPC(robot, dynamics=s["dynamics"], nodes=s["nodes"],
                flip_reset=s["flip_reset"], warm_shift=s["warm_shift"],
+               **s.get("form_kwargs", {}),
                config=SQPConfig(sqp_iters=s["sqp_iters"],
                                 n_trials=s["ls_trials"],
                                 corrector_iters=s["corrector"],
@@ -431,38 +464,60 @@ def parity_spread(ticks):
                       "jax_spread": out["jax_spread"]}, indent=1))
 
 
-def formulations():
-    """The --formulations fixture: {case: {setup, init, ticks, retract}}."""
+def short_rollouts(setups, name):
+    """Write {case: {setup, init, ticks[, retract]}} of the setups (batch 2,
+    FORM_TARGETS) to tests/data/NAME: the per-tick results and
+    ``MPC.retract`` of scenario 0's last solution, where the JAX package
+    has one (whole_body_rnea(include_acc=False) decodes no acceleration)."""
     import jax
 
     from tpu_locoman.parallel import batched_init
 
     out = {}
     targets = np.asarray(FORM_TARGETS, np.float32)
-    for case, robot, dyn, nodes, n_ticks, flip in FORM_CASES:
-        s = dict(SETUP, robot=robot, dynamics=dyn, nodes=nodes,
-                 ticks=n_ticks, flip_reset=flip,
-                 targets_vx=[t[0] for t in FORM_TARGETS])
+    for case, s in setups.items():
         mpc = make_mpc(s)
         carry = batched_init(mpc, len(targets))
         init = jax.device_get(carry)
         ticks = []
-        for k, carry, st in rollout(mpc, carry, targets, n_ticks,
+        for k, carry, st in rollout(mpc, carry, targets, s["ticks"],
                                     s["dt_min"]):
             ticks.append(_tick(carry, st))
             print(case, k, np.asarray(st["max_violation"]), flush=True)
-        Z, x0 = carry.solver_state.Z[0], carry.x_init[0]
-        ret = jax.device_get(jax.jit(mpc.retract)(Z, x0))
-        out[case] = {"setup": s, "init": _init(init), "ticks": ticks,
-                     "retract": {"Z": pack(np.asarray(Z, np.float32)),
-                                 "x_init": pack(np.asarray(x0, np.float32)),
-                                 **{k: pack(np.asarray(v, np.float32))
-                                    for k, v in ret.items()}}}
+        out[case] = {"setup": s, "init": _init(init), "ticks": ticks}
+        if s.get("form_kwargs", {}).get("include_acc", True):
+            Z, x0 = carry.solver_state.Z[0], carry.x_init[0]
+            ret = jax.device_get(jax.jit(mpc.retract)(Z, x0))
+            out[case]["retract"] = {
+                "Z": pack(np.asarray(Z, np.float32)),
+                "x_init": pack(np.asarray(x0, np.float32)),
+                **{k: pack(np.asarray(v, np.float32)) for k, v in ret.items()}}
     out["targets"] = pack(targets)
-    path = os.path.join(DATA, "torch_golden_formulations.json")
+    path = os.path.join(DATA, name)
     with open(path, "w") as f:
         json.dump(out, f)
     print("wrote", path, os.path.getsize(path), "bytes")
+
+
+def formulations():
+    """The --formulations fixture."""
+    targets_vx = [t[0] for t in FORM_TARGETS]
+    short_rollouts({
+        case: dict(SETUP, robot=robot, dynamics=dyn, nodes=nodes,
+                   ticks=n_ticks, flip_reset=flip, targets_vx=targets_vx)
+        for case, robot, dyn, nodes, n_ticks, flip in FORM_CASES},
+        "torch_golden_formulations.json")
+
+
+def variants():
+    """The --variants fixture: the formulation variants on Go2 N=3."""
+    targets_vx = [t[0] for t in FORM_TARGETS]
+    short_rollouts({
+        case: dict(SETUP, robot="Go2", robot_kwargs=robot_kw, dynamics=dyn,
+                   form_kwargs=form_kw, nodes=3, ticks=3,
+                   targets_vx=targets_vx)
+        for case, robot_kw, dyn, form_kw in VARIANT_CASES},
+        "torch_golden_variants.json")
 
 
 def _tick(carry, st):
@@ -518,6 +573,9 @@ def main():
     ap.add_argument("--formulations", action="store_true",
                     help="write the short rollouts of the other "
                          "formulations (Go2 and B2G, N=3 and 6)")
+    ap.add_argument("--variants", action="store_true",
+                    help="write the short rollouts of the formulation "
+                         "variants (Go2 N=3)")
     ap.add_argument("--against", action="store_true",
                     help=f"replay the fixture with JAX at factorizer "
                          f"{AGAINST!r} (\"cholinv\" for a {AGAINST!r} "
@@ -543,6 +601,8 @@ def main():
         out_path = os.path.join(DATA, name)
     if args.formulations:
         return formulations()
+    if args.variants:
+        return variants()
     if args.parity_go2:
         import tempfile
 

@@ -3,22 +3,27 @@
 PyTorch counterpart of ``tpu_locoman/dynamics/formulations.py``:
 ``StageParams``, ``SharedParams`` and the five formulations
 (``centroidal_vel``, ``centroidal_acc``, ``whole_body_acc``,
-``whole_body_rnea``, ``whole_body_aba``) at their default arguments. The
-variants that the JAX package linearizes by a whole-stage jacfwd
-(``include_base=False``, ``include_acc=False``) wait for a later slice
-(ROADMAP queue 1, item 13b).
+``whole_body_rnea``, ``whole_body_aba``) with their variants:
+``include_base=False`` (the base velocity or acceleration eliminated
+through ``base_vel_dynamics`` / ``base_acc_dynamics``) and
+``whole_body_rnea(include_acc=False)`` (finite-difference accelerations).
+The variants have no split layout (``dyn_nl_idx`` or ``dx_next_pattern``
+is None), so the transcription linearizes their whole stage by forward
+mode, as the JAX package does by jacfwd.
 
 Every stage function takes tensors with the same leading dimensions
 (scenarios, nodes, ...) and maps the trailing axis; the JAX versions are
 written per node and vmapped.
 
-Each formulation also gives the transcription its dynamics rows with their
-(dx, u) Jacobian (``dyn_linearize``): by the chain rule from the analytic
-RNEA derivatives (kernel K2) for ``whole_body_rnea`` and
+Each formulation also gives the split transcription its dynamics rows
+with their (dx, u) Jacobian (``dyn_linearize``): by the chain rule from the
+analytic RNEA derivatives (kernel K2) for ``whole_body_rnea`` and
 ``whole_body_acc``, from ``rbda.aba_derivatives`` (K1 and K2) for
 ``whole_body_aba``, and by reverse-mode AD over plain torch for the
 centroidal rows, which reach no kernel (the JAX package takes those by
-jacrev too).
+jacrev too). On the Euler-ZYX base the RNEA derivatives come from
+forward-mode AD over the plain recursion (``rbda.rnea_jacobians``), as
+the JAX package takes them.
 """
 
 from typing import NamedTuple
@@ -26,12 +31,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import rbda, rnea_derivs
+from .. import rbda
 from ..rbda import model_difference, model_integrate
-
-#: the NotImplementedError text of the variants still to port
-_ITEM_13B = "is not ported yet (ROADMAP queue 1, item 13b)"
-
 
 class StageParams(NamedTuple):
     """Per-node parameters, (B, N[, 4]) with the scenario axis first."""
@@ -128,7 +129,11 @@ class Formulation:
         return torch.cat([dp.expand_as(dl), dl], -1)
 
     def rnea_dyn(self, q, v, a, forces):
-        """Whole-body torques (..., nv)."""
+        """Whole-body torques (..., nv). On the quaternion base through
+        ``rbda.rnea_ad``, whose forward-mode rule takes every derivative
+        from one K2 launch (the whole-stage linearize of the variants)."""
+        if self.model.base_type != "euler_zyx":
+            return rbda.rnea_ad(self.model, q, v, a, self.ee_frames, forces)
         return rbda.rnea(self.model, q, v, a, self.ee_frames, forces)
 
     def frame_velocity(self, frame, q, v, relative_to_base=False):
@@ -137,16 +142,11 @@ class Formulation:
 
     def _rnea_jac(self, q, v, a, forces):
         """tau (..., nv) and its derivatives dtau/d(q tangent, v, a, f)
-        (..., nv, nv | nf): one ``rnea_derivatives`` call (kernel K2) over
-        the flat batch of nodes."""
+        (..., nv, nv | nf): ``rbda.rnea_jacobians`` over the flat batch of
+        nodes (one launch of kernel K2 on the quaternion base)."""
         ee = tuple(self.ee_frames)
         tau = rbda.rnea(self.model, q, v, a, ee, forces)
-        lead = q.shape[:-1]
-        flat = lambda x: x.reshape((-1,) + x.shape[len(lead):])  # noqa: E731
-        derivs = rnea_derivs.rnea_derivatives(
-            self.model, flat(q).contiguous(), flat(v).contiguous(),
-            flat(a).contiguous(), ee, flat(forces).contiguous())
-        return tau, [x.reshape(lead + x.shape[1:]) for x in derivs]
+        return tau, rbda.rnea_jacobians(self.model, q, v, a, ee, forces)
 
     def dyn_linearize(self, x_init, dx, u, sp, to_dx):
         """(decode, dynamics rows at dx_next = 0, their (..., len(dyn_nl_idx),
@@ -207,12 +207,9 @@ class CentroidalVel(Formulation):
     v_in_u = True
 
     def __init__(self, robot, include_base=True):
-        if not include_base:
-            raise NotImplementedError(
-                f"centroidal_vel(include_base=False) {_ITEM_13B}")
         super().__init__(robot)
         self.include_base = include_base
-        self.nv_opt = self.nv
+        self.nv_opt = self.nv if include_base else self.nj
         self.nx = 6 + self.nq
         self.ndx = 6 + self.nv
         self.f_idx = self.nv_opt
@@ -224,7 +221,7 @@ class CentroidalVel(Formulation):
 
     @property
     def n_dyn(self):
-        return 6 + self.nv + 6
+        return 6 + self.nv + (6 if self.include_base else 0)
 
     @property
     def n_prop_rows(self):
@@ -255,10 +252,16 @@ class CentroidalVel(Formulation):
 
     def decode(self, x_init, dx, u):
         x = self.integrate(x_init, dx)
-        return {"h": x[..., :6], "q": x[..., 6:], "v": u[..., :self.nv_opt],
-                "forces": u[..., self.f_idx:], "a": None, "tau_j": None}
+        h, q = x[..., :6], x[..., 6:]
+        v = u[..., :self.nv_opt]
+        if not self.include_base:
+            v = torch.cat([self.base_vel_dynamics(h, q, v), v], -1)
+        return {"h": h, "q": q, "v": v, "forces": u[..., self.f_idx:],
+                "a": None, "tau_j": None}
 
     def dyn_nl_idx(self):
+        if not self.include_base:
+            return None  # the base velocity makes r_q nonlinear
         return np.concatenate([np.arange(6),
                                np.arange(6 + self.nv, self.n_dyn)])
 
@@ -279,6 +282,8 @@ class CentroidalVel(Formulation):
         h_dot = self.com_dynamics(d["q"], d["forces"]) / self.mass
         r_h = dx_next[..., :6] - (dx[..., :6] + h_dot * dt)
         r_q = dx_next[..., 6:] - (dx[..., 6:] + d["v"] * dt)
+        if not self.include_base:
+            return torch.cat([r_h, r_q], -1)
         A = rbda.ccrba(self.model, d["q"])
         gaps = rbda.mv(A, d["v"]) - d["h"] * self.mass
         return torch.cat([r_h, r_q, gaps], -1)
@@ -369,16 +374,14 @@ class _AccStateFormulation(Formulation):
 
 
 class _AccInput(_AccStateFormulation):
-    """Input (a, forces) with a = u[:nv]: the centroidal_acc and
-    whole_body_acc layouts (include_base=True)."""
+    """Input (a, forces) with a = u[:nv] (include_base=True), or (a_j,
+    forces) with the base acceleration from ``base_acc_dynamics``: the
+    centroidal_acc and whole_body_acc layouts."""
 
     def __init__(self, robot, include_base=True):
-        if not include_base:
-            raise NotImplementedError(
-                f"{self.name}(include_base=False) {_ITEM_13B}")
         super().__init__(robot)
         self.include_base = include_base
-        self.na_opt = self.nv
+        self.na_opt = self.nv if include_base else self.nj
         self.f_idx = self.na_opt
         self.tau_idx = None
 
@@ -388,7 +391,7 @@ class _AccInput(_AccStateFormulation):
 
     @property
     def n_dyn(self):
-        return 2 * self.nv + 6
+        return 2 * self.nv + (6 if self.include_base else 0)
 
     @property
     def n_prop_rows(self):
@@ -396,11 +399,18 @@ class _AccInput(_AccStateFormulation):
 
     def decode(self, x_init, dx, u):
         x = self.integrate(x_init, dx)
-        return {"q": x[..., :self.nq], "v": x[..., self.nq:],
-                "a": u[..., :self.na_opt], "forces": u[..., self.f_idx:],
-                "tau_j": None}
+        q, v = x[..., :self.nq], x[..., self.nq:]
+        a, forces = u[..., :self.na_opt], u[..., self.f_idx:]
+        if not self.include_base:
+            a = torch.cat([self.base_acc_dynamics(q, v, a, forces), a], -1)
+        return {"q": q, "v": v, "a": a, "forces": forces, "tau_j": None}
+
+    def _gaps(self, d, sp):
+        return self._base_gaps(d, sp) if self.include_base else []
 
     def dyn_nl_idx(self):
+        if not self.include_base:
+            return None  # the base acceleration makes r_v nonlinear
         return np.arange(2 * self.nv, self.n_dyn)
 
     def dyn_lin_jacobian(self, sp):
@@ -425,7 +435,7 @@ class CentroidalAcc(_AccInput):
         """a_b = A_b^-1 (dh - Adot v - A_j a_j)."""
         return _centroidal_base_acc(self, q, v, a_j, forces)
 
-    def _gaps(self, d, sp):
+    def _base_gaps(self, d, sp):
         q, v = d["q"], d["v"]
         A = rbda.ccrba(self.model, q)
         Adot = rbda.dccrba(self.model, q, v)
@@ -451,7 +461,7 @@ class WholeBodyAcc(_AccInput):
         rhs = -nle[..., :6] - rbda.mv(M[..., :6, 6:], a_j) + tau_ext
         return torch.linalg.solve(M[..., :6, :6], rhs)
 
-    def _gaps(self, d, sp):
+    def _base_gaps(self, d, sp):
         return [self.rnea_dyn(d["q"], d["v"], d["a"], d["forces"])[..., :6]]
 
     def dyn_linearize(self, x_init, dx, u, sp, to_dx):
@@ -476,13 +486,10 @@ class WholeBodyRNEA(_AccStateFormulation):
     name = "whole_body_rnea"
 
     def __init__(self, robot, tau_nodes=3, include_acc=True):
-        if not include_acc:
-            raise NotImplementedError(
-                f"whole_body_rnea(include_acc=False) {_ITEM_13B}")
         super().__init__(robot)
         self.tau_nodes = tau_nodes
         self.include_acc = include_acc
-        self.na_opt = self.nv
+        self.na_opt = self.nv if include_acc else 0
         self.f_idx = self.na_opt
         self.tau_idx = self.f_idx + self.nf
 
@@ -492,16 +499,21 @@ class WholeBodyRNEA(_AccStateFormulation):
 
     @property
     def n_dyn(self):
-        return 2 * self.nv + 6 + self.nj
+        return self.nv + (self.nv if self.include_acc else 0) + 6 + self.nj
 
     @property
     def n_prop_rows(self):
-        return 2 * self.nv
+        return self.nv + (self.nv if self.include_acc else 0)
+
+    def dx_next_pattern(self):
+        if not self.include_acc:
+            return None  # the finite-difference a reads dx_next
+        return super().dx_next_pattern()
 
     def decode(self, x_init, dx, u):
         x = self.integrate(x_init, dx)
         return {"q": x[..., :self.nq], "v": x[..., self.nq:],
-                "a": u[..., :self.na_opt],
+                "a": u[..., :self.na_opt] if self.include_acc else None,
                 "forces": u[..., self.f_idx:self.tau_idx],
                 "tau_j": u[..., self.tau_idx:]}
 
@@ -511,10 +523,22 @@ class WholeBodyRNEA(_AccStateFormulation):
         return _aba_dyn(self, q, v, tau_j, forces)
 
     def dyn_nl_idx(self):
+        if not self.include_acc:
+            return None
         return np.arange(2 * self.nv, self.n_dyn, dtype=np.int64)
 
     def dyn_lin_jacobian(self, sp):
         return self._prop_lin_jacobian(sp, with_rv=True)
+
+    def dyn_residual(self, x_init, dx, u, dx_next, sp, d=None):
+        if self.include_acc:
+            return super().dyn_residual(x_init, dx, u, dx_next, sp, d)
+        d = self.decode(x_init, dx, u) if d is None else d
+        nv, dt = self.nv, sp.dt[..., None]
+        a = (dx_next[..., nv:] - dx[..., nv:]) / dt
+        r_q = dx_next[..., :nv] - (dx[..., :nv] + d["v"] * dt)
+        tau = self.rnea_dyn(d["q"], d["v"], a, d["forces"])
+        return torch.cat([r_q] + self._tau_rows(tau, d, sp), -1)
 
     def _tau_rows(self, tau, d, sp):
         """The base rows of RNEA and the masked torque-equality rows."""

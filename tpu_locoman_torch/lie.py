@@ -180,3 +180,45 @@ def difference_q(q0, q1):
     """Tangent dq with integrate_q(q0, dq) == q1."""
     ff = freeflyer_difference(q0[..., :7], q1[..., :7])
     return torch.cat([ff, q1[..., 7:] - q0[..., 7:]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Euler-ZYX base chart (use_quaternion=False): q_base = [p (world),
+# rz ry rx], a vector space, so integrate and difference are additions.
+# ---------------------------------------------------------------------------
+
+def euler_zyx_to_matrix(e):
+    """(..., 3) -> (..., 3, 3): R = Rz(e0) @ Ry(e1) @ Rx(e2)."""
+    cz, sz = torch.cos(e[..., 0]), torch.sin(e[..., 0])
+    cy, sy = torch.cos(e[..., 1]), torch.sin(e[..., 1])
+    cx, sx = torch.cos(e[..., 2]), torch.sin(e[..., 2])
+    one, zero = torch.ones_like(cz), torch.zeros_like(cz)
+
+    def mat(rows):
+        return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+    Rz = mat([[cz, -sz, zero], [sz, cz, zero], [zero, zero, one]])
+    Ry = mat([[cy, zero, sy], [zero, one, zero], [-sy, zero, cy]])
+    Rx = mat([[one, zero, zero], [zero, cx, -sx], [zero, sx, cx]])
+    return Rz @ Ry @ Rx
+
+
+def matrix_to_euler_zyx(R):
+    """Inverse of euler_zyx_to_matrix (gimbal-safe for |pitch| < pi/2)."""
+    ry = torch.asin(-torch.clamp(R[..., 2, 0], -1.0, 1.0))
+    rz = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    rx = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    return torch.stack([rz, ry, rx], dim=-1)
+
+
+def quat_to_euler_zyx(q):
+    return matrix_to_euler_zyx(quat_to_matrix(q))
+
+
+def integrate_q_euler(q, dq):
+    """Vector-space base: plain addition on [p, euler, joints]."""
+    return q + dq
+
+
+def difference_q_euler(q0, q1):
+    return q1 - q0

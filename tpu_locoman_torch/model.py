@@ -26,8 +26,11 @@ class FrameHost:
 
 @dataclass
 class RobotModel:
-    """Movable joint 0 is the free-flyer base; joints 1..n_links-1 are
-    revolute. All arrays are indexed by movable-joint index."""
+    """Movable joint 0 is the floating base; joints 1..n_links-1 are
+    revolute. All arrays are indexed by movable-joint index. ``base_type``
+    is the base chart: "freeflyer" (q_base = [p, quat], the local twist as
+    velocity) or "euler_zyx" (q_base = [p, rz ry rx] and their rates, a
+    vector space)."""
 
     name: str
     parent: tuple
@@ -52,7 +55,7 @@ class RobotModel:
 
     @property
     def base_nq(self):
-        return 7
+        return 7 if self.base_type == "freeflyer" else 6
 
     @property
     def nq(self):

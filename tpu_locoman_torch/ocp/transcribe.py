@@ -1,21 +1,33 @@
 """Stagewise NLP transcription over a batch of scenarios.
 
-PyTorch counterpart of ``tpu_locoman/ocp/transcribe.py`` on the split
-linearization path. The iterate is Z (B, N+1, s) with stage blocks
-s_i = [dx_i (ndx), u_i (nu)]; constraint values are g (B, N, m) with the
-JAX package's row layout (dynamics, swing zero-force, contact xy velocity,
-blended z velocity, ext force, arm EE velocity, friction normal, cone,
-then the q/v/tau box rows).
+PyTorch counterpart of ``tpu_locoman/ocp/transcribe.py``. The iterate is
+Z (B, N+1, s) with stage blocks s_i = [dx_i (ndx), u_i (nu)]; constraint
+values are g (B, N, m) with the JAX package's row layout (dynamics, swing
+zero-force, contact xy velocity, blended z velocity, ext force, arm EE
+velocity, friction normal, cone, then the q/v/tau box rows).
 
-The linearization computes the same Jacobian rows as the JAX package's
-split path. The dynamics rows come from the formulation
-(``dyn_linearize``): the analytic RNEA derivatives (kernel K2,
-``rnea_derivs.rnea_derivatives``) and ABA's implicit derivatives (kernels
-K1 and K2, ``rbda.aba_derivatives``) evaluated once on the flat B*N batch,
-or reverse-mode AD over plain torch for the centroidal rows. The
-frame-velocity rows come from the analytic frame-kinematics Jacobians.
-Both are composed here with the configuration-chart map of ``integrate``;
-no autograd runs through RNEA or ABA.
+Two linearizations, as in the JAX package:
+
+- the split path (every formulation at its default arguments) computes
+  the same Jacobian rows as the JAX package's split path. The dynamics
+  rows come from the formulation (``dyn_linearize``): the analytic RNEA
+  derivatives (kernel K2, ``rbda.rnea_jacobians``) and ABA's implicit
+  derivatives (kernels K1 and K2, ``rbda.aba_derivatives``) evaluated once
+  on the flat B*N batch, or reverse-mode AD over plain torch for the
+  centroidal rows. The frame-velocity rows come from the analytic
+  frame-kinematics Jacobians. Both are composed here with the
+  configuration-chart map of ``integrate``; no autograd runs through RNEA
+  or ABA. On the Euler-ZYX base, as in the JAX package, the RNEA
+  derivatives and the frame-velocity rows come from AD over the plain
+  recursions instead (the analytic derivatives are for the quaternion
+  base);
+- the whole-stage path (the variants, whose dynamics rows are nonlinear
+  throughout or read dx_next) takes (G, B[, C]) by forward mode over the
+  whole stage: ``torch.func.jvp`` of ``stage_residual`` vmapped over the
+  tangent basis, each basis vector broadcast over every node (the nodes
+  are independent), as the JAX package takes them by jacfwd. RNEA enters
+  through ``rbda.rnea_ad``, whose forward-mode rule launches K2 once per
+  linearize, on the primals.
 """
 
 from typing import NamedTuple
@@ -65,9 +77,9 @@ class Transcription:
         self.m = self.n_eq + self.n_ineq
         self.n_box = 2 * nj + (nj if self.has_tau else 0)
         self.m_dense = self.m - self.n_box
-        if form.v_in_u:  # dx = [dh (6), dq (nv)], v = u[:nv]
-            slots = ([12 + j for j in range(nj)]
-                     + [self.ndx + 6 + j for j in range(nj)])
+        if form.v_in_u:  # dx = [dh (6), dq (nv)], v = u[:nv_opt]
+            off = self.ndx + (6 if form.include_base else 0)
+            slots = [12 + j for j in range(nj)] + [off + j for j in range(nj)]
         else:  # dx = [dq (nv), dv (nv)]
             slots = ([6 + j for j in range(nj)]
                      + [form.nv + 6 + j for j in range(nj)])
@@ -75,14 +87,22 @@ class Transcription:
             slots += [self.ndx + form.tau_idx + j for j in range(nj)]
         self.box_slots = np.asarray(slots, dtype=np.int64)
 
-        k = form.n_prop_rows
-        pat = form.dx_next_pattern()
-        expect = np.zeros_like(pat)
-        expect[:k, :k] = np.eye(k, dtype=pat.dtype)
-        assert np.array_equal(pat, expect) and pat.shape[0] <= self.m_dense
-        self.c_eye_rows = int(k)
-        self.C_pat = pat
+        # the dx_next block C: the constant propagation pattern (the QP
+        # then streams slices of it) when the formulation has one
+        self.C_pat = form.dx_next_pattern()
+        self.c_eye_rows = None
+        if self.C_pat is not None:
+            k = form.n_prop_rows
+            expect = np.zeros_like(self.C_pat)
+            expect[:k, :k] = np.eye(k, dtype=self.C_pat.dtype)
+            if (self.C_pat.shape[0] <= self.m_dense
+                    and np.array_equal(self.C_pat, expect)):
+                self.c_eye_rows = int(k)
 
+        dyn_nl = form.dyn_nl_idx()
+        self.split_ok = dyn_nl is not None and self.C_pat is not None
+        if not self.split_ok:
+            return
         n_dyn = self.n_dyn
         off_sw = n_dyn
         off_xy = off_sw + 3 * nf4
@@ -92,7 +112,7 @@ class Transcription:
         off_fric = off_arm + (3 if self.has_arm else 0)
         off_cone = off_fric + nf4
         assert off_cone + nf4 == self.m_dense
-        self.dyn_nl_rows = form.dyn_nl_idx()
+        self.dyn_nl_rows = dyn_nl
         vel_rows = list(range(off_xy, off_z + nf4))
         if self.has_arm:
             vel_rows += list(range(off_arm, off_arm + 3))
@@ -222,36 +242,94 @@ class Transcription:
     def linearize(self, Z, stage_params, shared):
         """(g (B, N, m), G (B, N, m_dense, ndx), Bm (B, N, m_dense, nu),
         C (B, N, m_dense, ndx)) at Z (B, N+1, s)."""
+        if self.split_ok:
+            return self._linearize_split(Z, stage_params, shared)
+        return self._linearize_whole(Z, stage_params, shared)
+
+    def _linearize_whole(self, Z, sp, shared):
+        """The whole stage's Jacobian by forward mode: one jvp of
+        ``stage_residual`` per column of (dx, u[, dx_next]), vmapped over
+        the columns, each tangent the same basis vector at every node.
+        With a C pattern, C is that constant and dx_next no tangent."""
+        ndx, nu, md = self.ndx, self.nu, self.m_dense
+        DX = Z[..., :ndx]
+        dx, dxn, u = DX[:, :-1], DX[:, 1:], Z[:, :-1, ndx:]
+        with_c = self.C_pat is None
+        prim = (dx, u, dxn) if with_c else (dx, u)
+
+        def stage(*x):
+            return self.stage_residual(x[0], x[1], x[2] if with_c else dxn,
+                                       sp, shared)
+
+        K = sum(p.shape[-1] for p in prim)
+        eye = torch.eye(K, dtype=Z.dtype, device=Z.device)
+        basis, o = [], 0
+        for p in prim:
+            w = p.shape[-1]
+            basis.append(eye[:, o:o + w].reshape(
+                (K,) + (1,) * (p.dim() - 1) + (w,)).expand((K,) + p.shape))
+            o += w
+        g, J = torch.func.vmap(
+            lambda *t: torch.func.jvp(stage, prim, t),
+            out_dims=(None, 0))(*basis)
+        J = J[..., :md].movedim(0, -1)  # (B, N, m_dense, K)
+        if with_c:
+            C = J[..., ndx + nu:]
+        else:
+            C_full = Z.new_zeros(md, ndx)
+            C_full[:self.n_dyn] = torch.as_tensor(self.C_pat, device=Z.device)
+            C = C_full.expand(dx.shape[:-1] + C_full.shape)
+        return g, J[..., :ndx], J[..., ndx:ndx + nu], C
+
+    def _vel_rows_ad(self, x_init, dx, u, sp):
+        """The frame-velocity rows' values (unblended z) and their
+        (..., n_vel, s) Jacobian by reverse-mode AD over the plain
+        kinematics: the Euler-base split path, as the JAX package takes
+        it."""
         form = self.form
         model = form.model
-        sp = stage_params
-        nv, nq, ndx = form.nv, form.nq, self.ndx
-        nf = form.n_feet
-        DX = Z[..., :ndx]
-        dx, dxn = DX[:, :-1], DX[:, 1:]
-        u = Z[:, :-1, ndx:]
-        lead = dx.shape[:-1]
+        nf, nq = form.n_feet, form.nq
         n0 = sp.node0_mask[..., None]
         sm = sp.state_mask[..., None]
-        x_init = _node(shared.x_init, lead)
-        dxm = dx * n0
-        qo, dqo = form.q_off, form.dq_off
-        # chart map: d(local tangent at q) / d(dx_q); joint block = identity
-        Tb = rbda.integrate_tangent_map(x_init[..., qo:qo + nq],
-                                        dxm[..., dqo:dqo + nv])
+        smc = sm * sp.contact[..., :nf]
 
-        def to_dx(J):  # (B, N, ..., r, nv) local tangent -> dx_q columns
-            T_ = Tb.reshape(lead + (1,) * (J.dim() - 4) + (6, 6))
-            return torch.cat([J[..., :6] @ T_, J[..., 6:]], -1)
+        def rows(dx_, u_):
+            x = form.integrate(x_init, dx_ * n0)
+            if form.v_in_u:
+                q, v = x[..., 6:], u_[..., :form.nv]
+            else:
+                q, v = x[..., :nq], x[..., nq:]
+            kin = rbda.fk_vel(model, q, v)
+            vel = torch.stack([rbda.frame_velocity_from(model, fn, *kin)
+                               for fn in form.foot_frames], dim=-2)
+            out = [(smc[..., None] * vel[..., :2]).flatten(-2),
+                   sm * vel[..., 2]]
+            if self.has_arm:
+                va = rbda.frame_velocity_from(
+                    model, form.arm_ee_frame, *kin, relative_to_base=True,
+                    base_frame=form.base_frame)
+                out.append(sm * va[..., :3])
+            return torch.cat(out, -1)
 
-        # ---- dynamics rows: the formulation's values and Jacobian ---------
-        d, dyn0, Jd = form.dyn_linearize(x_init, dx, u, sp, to_dx)
-        q, v, forces, tau_j = d["q"], d["v"], d["forces"], d["tau_j"]
-        C_pat = torch.as_tensor(self.C_pat, device=Z.device)
-        g_dyn = dyn0 + dxn @ C_pat.T
+        vb0, pull = torch.func.vjp(rows, dx, u)
+        n = vb0.shape[-1]
+        basis = torch.eye(n, dtype=dx.dtype, device=dx.device).reshape(
+            (n,) + (1,) * (vb0.dim() - 1) + (n,)).expand((n,) + vb0.shape)
+        gdx, gu = torch.func.vmap(pull)(basis)
+        return vb0, torch.cat([gdx, gu], -1).movedim(0, -2)
+
+    def _vel_rows_analytic(self, q, v, sp, to_dx):
+        """The frame-velocity rows' values (unblended z) and their
+        (..., n_vel, s) Jacobian from the analytic frame kinematics
+        (quaternion base), composed with the chart map ``to_dx``."""
+        form = self.form
+        model = form.model
+        nv, nf = form.nv, form.n_feet
+        lead = q.shape[:-1]
+        n0 = sp.node0_mask[..., None]
+        sm = sp.state_mask[..., None]
         n0r = n0[..., None]
-
-        # ---- frame-velocity rows: analytic frame kinematics --------------
+        dqo = form.dq_off
         frames = tuple(form.foot_frames)
         if self.has_arm:
             frames = frames + (form.arm_ee_frame, form.base_frame)
@@ -298,11 +376,53 @@ class Transcription:
         vb0 = torch.cat(vals, -1)
         n_vel = vb0.shape[-1]
         # v is dx_v (masked at node 0) or, for centroidal_vel, u[:nv]
-        Jvel = Z.new_zeros(lead + (n_vel, self.s))
+        Jvel = q.new_zeros(lead + (n_vel, self.s))
         Jvel[..., dqo:dqo + nv] = torch.cat(Jq_rows, -2) * n0r
         v0 = self.ndx if form.v_in_u else nv
         Jv_all = torch.cat(Jv_rows, -2)
         Jvel[..., v0:v0 + nv] = Jv_all if form.v_in_u else Jv_all * n0r
+        return vb0, Jvel
+
+    def _linearize_split(self, Z, stage_params, shared):
+        form = self.form
+        model = form.model
+        sp = stage_params
+        nv, nq, ndx = form.nv, form.nq, self.ndx
+        nf = form.n_feet
+        DX = Z[..., :ndx]
+        dx, dxn = DX[:, :-1], DX[:, 1:]
+        u = Z[:, :-1, ndx:]
+        lead = dx.shape[:-1]
+        n0 = sp.node0_mask[..., None]
+        sm = sp.state_mask[..., None]
+        x_init = _node(shared.x_init, lead)
+        dxm = dx * n0
+        qo, dqo = form.q_off, form.dq_off
+        euler = model.base_type == "euler_zyx"
+        if euler:  # a vector-space chart: the derivatives are in dx_q
+            def to_dx(J):
+                return J
+        else:
+            # chart map: d(local tangent at q) / d(dx_q); joint block = I
+            Tb = rbda.integrate_tangent_map(x_init[..., qo:qo + nq],
+                                            dxm[..., dqo:dqo + nv])
+
+            def to_dx(J):  # (B, N, ..., r, nv) local tangent -> dx_q cols
+                T_ = Tb.reshape(lead + (1,) * (J.dim() - 4) + (6, 6))
+                return torch.cat([J[..., :6] @ T_, J[..., 6:]], -1)
+
+        # ---- dynamics rows: the formulation's values and Jacobian ---------
+        d, dyn0, Jd = form.dyn_linearize(x_init, dx, u, sp, to_dx)
+        q, v, forces, tau_j = d["q"], d["v"], d["forces"], d["tau_j"]
+        C_pat = torch.as_tensor(self.C_pat, device=Z.device)
+        g_dyn = dyn0 + dxn @ C_pat.T
+
+        # ---- frame-velocity rows ------------------------------------------
+        c = sp.contact[..., :nf]
+        if euler:
+            vb0, Jvel = self._vel_rows_ad(x_init, dx, u, sp)
+        else:
+            vb0, Jvel = self._vel_rows_analytic(q, v, sp, to_dx)
 
         # ---- closed-form rows -------------------------------------------
         f = forces[..., :3 * nf].reshape(lead + (nf, 3))

@@ -7,6 +7,7 @@ its own byte-for-byte copies of the JAX package's specs (``go2.json``,
 own is built from its URDF/SRDF with ``tpu_locoman_torch.urdf``.
 """
 
+import dataclasses
 import json
 import os
 
@@ -23,24 +24,48 @@ def load_spec(spec_name):
         return model_from_dict(json.load(f))
 
 
+def _quat_to_euler_zyx_np(q):
+    """Host-side (x, y, z, w) quaternion -> ZYX Euler angles."""
+    x, y, z, w = q
+    R = np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ])
+    ry = np.arcsin(-np.clip(R[2, 0], -1, 1))
+    rz = np.arctan2(R[1, 0], R[0, 0])
+    rx = np.arctan2(R[2, 1], R[2, 2])
+    return np.array([rz, ry, rx])
+
+
+def _to_euler_base(model):
+    """The model with the Euler-ZYX base chart, its reference poses
+    converted."""
+    refs = {
+        name: np.concatenate([q[:3], _quat_to_euler_zyx_np(q[3:7]), q[7:]])
+        for name, q in model.reference_configurations.items()
+    }
+    return dataclasses.replace(model, base_type="euler_zyx",
+                               reference_configurations=refs)
+
+
 class Robot:
-    """Dims, reference pose, gait attachment and end-effector frames."""
+    """Dims, reference pose, gait attachment and end-effector frames.
+    ``use_quaternion=False`` puts the base in the Euler-ZYX chart."""
 
     FOOT_FRAMES = ["FR_foot", "FL_foot", "RR_foot", "RL_foot"]
 
     def __init__(self, model, reference_pose, base_frame="base_link",
                  use_quaternion=True):
         if not use_quaternion:
-            raise NotImplementedError(
-                "the Euler-ZYX base chart (use_quaternion=False) is not "
-                "ported yet (ROADMAP queue 1, item 13b)")
+            model = _to_euler_base(model)
         self.model = model
         self.base_frame = base_frame
         if reference_pose and reference_pose in model.reference_configurations:
             self.q0 = np.asarray(model.reference_configurations[reference_pose])
         else:
-            self.q0 = np.concatenate([[0, 0, 0, 0, 0, 0, 1],
-                                      np.zeros(model.nj)])
+            base0 = [0, 0, 0, 0, 0, 0, 1] if use_quaternion else [0] * 6
+            self.q0 = np.concatenate([base0, np.zeros(model.nj)])
         self.nq = model.nq
         self.nv = model.nv
         self.nj = model.nj
