@@ -78,7 +78,26 @@ Phases, one line each (any failure raises; exit code non-zero):
 26. checkpoint save / load / resume on the card, diagnostics.structure_check
     of the flagship and of include_acc=False, and rnea_wf, crba_wf and
     ccrba_wf against the recursions at B=7168;
-27. one JSON line with each kernel's error, times, bound and launch counts
+27. the exported step (tpu_locoman_torch.aot): the flagship at batch 512
+    and the accurate single robot (pallas) at batch 1, each exported with
+    its retraction, saved to bytes and loaded by a worker process started
+    after phase 2 (minutes of host work that overlap phases 3-26), then,
+    on the idle card, 3 ticks of the artifact against 3 eager ticks from
+    the same carry, with the artifact's launches (K1 15 and K2 1 per
+    flagship tick, K2 5 and K3 5 per accurate tick) and the export, load
+    and tick times; then (27b) the flagship and include_acc=False timed
+    again with the workers gone, against phases 5 and 22;
+28. tpu_locoman_torch.dryrun.dryrun_multichip at the flagship's width,
+    batch 512, 2 ticks: NCCL over the card count (1 here) and two gloo
+    processes sharing the card, each sharded == unsharded, and each slice
+    run unsharded at the local batch (a sharding fault against a change
+    of batch size);
+29. the run_mpc example at its defaults (batch 1, 100 loops) with --dump
+    and --viz, held to the verify skill's health criteria, its scene
+    against the same scene computed on the CPU;
+30. the run_ocp example --debug at its defaults, and native.pack_params of
+    its state;
+31. one JSON line with each kernel's error, times, bound and launch counts
     (per path under "path_launches").
 The bounds of 17, 18 and 21 are SPREAD_FACTOR times JAX against itself,
 and the gates of 19 and 20 JAX's own violation widened by that (see
@@ -97,6 +116,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -176,6 +196,9 @@ SPREAD_FACTOR = 3.0
 # tensor cores (the solver runs no TF32)
 H100_BYTES_PER_S = 3.35e12
 H100_F32_PER_S = 67e12
+# an exported step against the eager step from the same carry: the same
+# operations and kernels in the same order (0 on the CPU)
+EXPORT_TOL = 1e-4
 
 
 def log(*parts):
@@ -294,6 +317,299 @@ def k2_samples(np, robot, B, seed):
     v = rng.standard_normal((B, m.nv)).astype(np.float32)
     a = rng.standard_normal((B, m.nv)).astype(np.float32)
     return q, v, a, rng
+
+
+def artifact_ticks(step, carry, targets, dt, ticks, zeros):
+    """``ticks`` ticks of an exported step (or of MPC.step with the same
+    arguments) from carry, each bracketed by a device synchronize; returns
+    (carry, max_violation of the last tick, ms per tick)."""
+    import numpy as np
+    import torch
+
+    B = targets.shape[0]
+    ms = []
+    for k in range(ticks):
+        t = torch.full((B,), float(np.float32(k * dt)), device=targets.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, viol = step(carry, t, targets, zeros, zeros)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return carry, viol, ms
+
+
+# the exported paths of phase 27: label -> (launches (K1, K2, K3) per tick
+# of the artifact, batch)
+EXPORTS = {"flagship": ((15, 1, 0), 512), "accurate b1": ((0, 5, 5), 1)}
+
+
+def export_mpc(T, dev, label):
+    """The MPC of an exported path, as phases 5 and 9 build it."""
+    if label == "flagship":
+        with open(os.path.join(ROOT, "SHIPPING.json")) as fh:
+            ship = json.load(fh)["bench_defaults"]
+        return hot_mpc(T, dev, ship["factorizer"], ship=ship)
+    return accurate_mpc(T, T.SQPConfig.accurate()._replace(
+        admm=T.ADMMConfig(iters=10, factorizer="pallas")))
+
+
+def export_worker(label, workdir, ticks=3, wait_s=1500):
+    """Phase 27's work for one path, in its own process (chip_smoke.py
+    --export-worker LABEL DIR): export the step and the retraction on the
+    card, save to bytes and load them, which is host work (tracing with
+    fake tensors launches nothing) that overlaps phases 3-26 of the main
+    process, pinned to the upper half of the host's cores so that the
+    main process keeps the lower half; then, once the main process creates
+    DIR/go-LABEL (the card idle), one warm-up tick of the artifact and of
+    the eager step and ``ticks`` ticks of each from the same carry, with
+    the artifact's launches. Writes DIR/LABEL.json."""
+    cpus = sorted(os.sched_getaffinity(0))
+    if len(cpus) >= 4:
+        os.sched_setaffinity(0, cpus[len(cpus) // 2:])
+    import torch
+
+    torch.set_num_threads(max(1, len(cpus) // 4))
+    sys.path.insert(0, ROOT)
+    import tpu_locoman_torch as T
+    from tpu_locoman_torch import aot
+
+    dev = torch.device("cuda")
+    expect, batch = EXPORTS[label]
+    mpc = export_mpc(T, dev, label)
+    t0 = time.time()
+    data = aot.export_mpc_step(mpc, batch)
+    export_s = time.time() - t0
+    t0 = time.time()
+    step = aot.load_artifact(data)
+    load_s = time.time() - t0
+    rdata = aot.export_retract(mpc, batch)
+    retract = aot.load_artifact(rdata)
+    go = os.path.join(workdir, f"go-{label}")
+    t0 = time.time()
+    while not os.path.exists(go):
+        check(time.time() - t0 < wait_s, f"export worker {label}: no go")
+        time.sleep(0.5)
+    targets = torch.zeros(batch, 6, device=dev)
+    targets[:, 0] = 0.2
+    zeros = torch.zeros(batch, 3, device=dev)
+
+    def eager(c, t, b, e, a):
+        c, stats = mpc.step(c, t, b, e, a)
+        return c, stats["max_violation"]
+
+    carry = mpc.init_carry(batch)
+    artifact_ticks(step, carry, targets, mpc.dt_min, 1, zeros)
+    artifact_ticks(eager, carry, targets, mpc.dt_min, 1, zeros)
+    reset_launches()
+    ca, va, ms_a = artifact_ticks(step, carry, targets, mpc.dt_min, ticks,
+                                  zeros)
+    launches = read_launches()
+    ce, ve, ms_e = artifact_ticks(eager, carry, targets, mpc.dt_min, ticks,
+                                  zeros)
+    out = retract(ca.solver_state.Z, ca.x_init)
+    ref = mpc.retract(ca.solver_state.Z, ca.x_init, num_steps=3)
+    r = {"label": label, "batch": batch, "ticks": ticks, "expect": expect,
+         "export_s": export_s, "load_s": load_s, "bytes": len(data),
+         "retract_bytes": len(rdata),
+         "nodes": sum(1 for _ in step.graph.nodes),
+         "gaps": {"x": float((ca.x_init - ce.x_init).abs().max()),
+                  "Z": float((ca.solver_state.Z
+                              - ce.solver_state.Z).abs().max()),
+                  "max_violation": float((va - ve).abs().max())},
+         "retract_gap": max(float((o - ref[k]).abs().max()) for o, k in zip(
+             out, ("q", "v", "a", "forces", "tau"))),
+         "artifact_ms": ms_a, "eager_ms": ms_e, "launches": launches}
+    with open(os.path.join(workdir, f"{label}.json"), "w") as f:
+        json.dump(r, f)
+    return 0
+
+
+def start_export_workers(workdir):
+    """One export_worker process per exported path, started right after
+    the build so that their host work overlaps the card's phases."""
+    procs = {}
+    for label in EXPORTS:
+        with open(os.path.join(workdir, f"{label}.log"), "w") as log_:
+            procs[label] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--export-worker",
+                 label, workdir], stdout=log_, stderr=subprocess.STDOUT)
+    return procs
+
+
+def phase_export(workers, workdir, timeout=1000):
+    """27: each exported path's worker, run one after the other on the idle
+    card: the artifact's ticks against the eager ticks (x, Z and
+    max_violation within EXPORT_TOL), its launches per tick, and the
+    export, load and tick times. Returns ({label: summary}, line)."""
+    res, parts = {}, []
+    for label, proc in workers.items():
+        open(os.path.join(workdir, f"go-{label}"), "w").close()
+        try:
+            proc.wait(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        with open(os.path.join(workdir, f"{label}.log")) as f:
+            out = f.read()
+        check(proc.returncode == 0, f"export worker {label} failed:\n{out}")
+        with open(os.path.join(workdir, f"{label}.json")) as f:
+            r = json.load(f)
+        n = r["ticks"]
+        check(tuple(r["launches"]) == tuple(n * k for k in r["expect"]),
+              f"{label} artifact launches {r['launches']}, expected "
+              f"{r['expect']} per tick")
+        for k, g in list(r["gaps"].items()) + [("retract",
+                                                 r["retract_gap"])]:
+            check(g <= EXPORT_TOL, f"{label} artifact {k} off the eager by "
+                  f"{g}")
+        g, la = r["gaps"], r["launches"]
+        res[label] = r
+        parts.append(
+            f"{label} (batch {r['batch']}): export (make_fx + torch.export + "
+            f"save) {r['export_s']:.1f} s, {r['bytes']} bytes, {r['nodes']} "
+            f"graph nodes, load {r['load_s']:.1f} s; {n} ticks from one "
+            f"carry, artifact against eager: x {g['x']:.3g}, Z {g['Z']:.3g}, "
+            f"max_violation {g['max_violation']:.3g} (tol {EXPORT_TOL}); "
+            f"artifact {ms_summary(r['artifact_ms'])} against eager "
+            f"{ms_summary(r['eager_ms'])}; artifact launches K1 {la[0]} K2 "
+            f"{la[1]} K3 {la[2]}; retract artifact ({r['retract_bytes']} "
+            f"bytes) off by {r['retract_gap']:.3g}")
+    return res, "[27 export, in worker processes] " + "; ".join(parts)
+
+
+def phase_quiet_host(dev, ship, batch, flagship_ms, noacc_ms):
+    """27b: the flagship (host-bound) and whole_body_rnea(include_acc=False)
+    (device-bound) timed again as phases 5 and 22 time them, now that the
+    export workers have exited: whether their host work beside phases 3-26
+    moved those phases' tick times (no gate)."""
+    import numpy as np
+
+    fl, _ = run_flagship(dev, ship, batch, 2, 20)
+    na, _ = run_flagship(dev, ship, batch, 2, 5,
+                         form_kwargs={"include_acc": False})
+    fl_ms, na_ms = float(np.mean(fl["tick_ms"])), float(np.mean(
+        na["tick_ms"]))
+    return (f"[27b quiet host] after the export workers exited, ms/tick mean: "
+            f"flagship {fl_ms:.2f} (phase 5, beside them: {flagship_ms:.2f}; "
+            f"ratio {flagship_ms / fl_ms:.3f}), include_acc=False {na_ms:.2f} "
+            f"(phase 22: {noacc_ms:.2f}; ratio {noacc_ms / na_ms:.3f})")
+
+
+def phase_dryrun():
+    """28: dryrun_multichip at the flagship's full width: NCCL at world
+    size = the card count, and two gloo processes sharing the one card
+    (collectives through host copies), each against the unsharded batch."""
+    import torch
+
+    from tpu_locoman_torch.dryrun import CONFIGS, X_TOL, dryrun_multichip
+
+    runs = {}
+    n = torch.cuda.device_count()
+    for label, procs, backend in ((f"nccl x{n}", n, "nccl"),
+                                  ("gloo x2 on one card", 2, "gloo")):
+        t0 = time.time()
+        r = dryrun_multichip(procs, backend=backend, device="cuda",
+                             timeout=600)
+        r["wall_s"] = time.time() - t0
+        check(r["x_gap"] <= X_TOL, f"dry run {label}: x gap {r['x_gap']}")
+        runs[label] = r
+    return runs, "[28 dryrun] flagship (B2G N=14, 10 warm-started sweeps, " + (
+        f"2 ticks) batch {CONFIGS['flagship'][4]}: " + "; ".join(
+            f"{k}: sharded == unsharded, x gap {r['x_gap']:.3g} (tol "
+            f"{X_TOL}), violation gap {r['viol_gap']:.3g} (rtol 0.3, atol "
+            f"0.05), max_violation mean {r['viol_mean']:.4f} (unsharded "
+            f"{r['viol_mean_unsharded']:.4f}), rank 0's ticks "
+            f"{', '.join(f'{x:.2f}' for x in r['rank0_tick_ms'])} ms (the "
+            f"first with the process's first launches), unsharded "
+            f"{', '.join(f'{x:.2f}' for x in r['unsharded_tick_ms'])} ms, "
+            f"rank 0 launches K1 {r['rank0_launches'][0]} K2 "
+            f"{r['rank0_launches'][1]} K3 {r['rank0_launches'][2]}; x against "
+            f"each slice unsharded at the local batch in rank 0's process: "
+            f"sharded {r['x_gap_local']:.3g}, full batch "
+            f"{r['x_gap_batch']:.3g}; "
+            + " | ".join(r["ranks"]) + f"; {r['wall_s']:.1f} s"
+            for k, r in runs.items()))
+
+
+def phase_examples(dev):
+    """29: python -m tpu_locoman_torch.examples.run_mpc at its defaults on
+    the card (B2G whole_body_rnea N=14, 2 SQP iterations of 100 sweeps,
+    batch 1, 100 loops) with --dump and --viz, held to the verify skill's
+    health criteria; the scene's points against the same scene computed
+    on the CPU by the port (atol 1e-5)."""
+    import tempfile
+
+    import numpy as np
+
+    from tpu_locoman_torch import viz
+    from tpu_locoman_torch.examples import run_mpc
+
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        dump, html = os.path.join(tmp, "traj.json"), os.path.join(
+            tmp, "replay.html")
+        r = run_mpc.main(["--dump", dump, "--viz", html])
+        with open(dump) as f:
+            d = json.load(f)
+        with open(html + ".json") as f:
+            scene = json.load(f)
+        mpc = r["mpc"]
+        cpu = viz.dump_scene(os.path.join(tmp, "cpu.json"), mpc.form.model,
+                             run_mpc.q_of(mpc, np.asarray(d["x"])),
+                             mpc.dt_min,
+                             frame_names=tuple(mpc.form.foot_frames),
+                             device="cpu")
+        with open(cpu) as f:
+            ref = json.load(f)
+    launches = read_launches()
+    scene_gap = float(np.abs(np.asarray(scene["points"])
+                             - np.asarray(ref["points"])).max())
+    check(scene_gap <= 1e-5, f"scene on the card vs the CPU: {scene_gap}")
+    check(r["viol_median"] < 0.5, f"run_mpc violation median "
+          f"{r['viol_median']}")
+    check(abs(r["vx"] - 0.2) <= 0.3 * 0.2, f"run_mpc vx {r['vx']}")
+    check(abs(r["final_pos"][2] - 0.55) <= 0.05,
+          f"run_mpc final z {r['final_pos'][2]}")
+    return r, launches, (
+        f"[29 examples] run_mpc defaults on the card (batch 1, 100 loops): "
+        f"{r['ms_per_tick']:.2f} ms/tick, violation median "
+        f"{r['viol_median']:.4f} (< 0.5) max {r['viol_max']:.4f}, tracked vx "
+        f"{r['vx']:.3f} (0.2 +- 30%), final base z {r['final_pos'][2]:.3f} "
+        f"(0.55 +- 0.05); --dump {len(d['x'])} states, --viz scene "
+        f"{np.asarray(scene['points']).shape} against the CPU's: max abs "
+        f"{scene_gap:.3g} (tol 1e-5); launches K1 {launches[0]} K2 "
+        f"{launches[1]} K3 {launches[2]}")
+
+
+def phase_ocp_native(dev):
+    """30: python -m tpu_locoman_torch.examples.run_ocp --debug at its
+    defaults on the card, and native.pack_params of that run's state."""
+    import numpy as np
+
+    from tpu_locoman_torch import native
+    from tpu_locoman_torch.examples import run_ocp
+
+    r = run_ocp.main(["--debug"])
+    check(r["max_violation"] < 0.05, f"run_ocp violation {r['max_violation']}")
+    check(r["tau_diff"] < 1e-3, f"run_ocp EOM vs RNEA {r['tau_diff']}")
+    mpc, c = r["mpc"], r["carry"]
+    sp = mpc.make_stage_params(c.x_init.new_zeros(1))
+    nx, N, nj = mpc.form.nx, mpc.nodes, mpc.form.nj
+    packed = native.pack_params(
+        c.x_init[0], sp.contact[0].T, sp.swing[0].T, [0.2, 0, 0, 0, 0, 0],
+        np.zeros(3), np.zeros(3), c.tau_prev[0])
+    check(packed.shape == (nx + 8 * N + 12 + nj,),
+          f"pack_params length {packed.shape}")
+    check(np.allclose(packed[:nx], c.x_init[0].cpu().numpy()),
+          "pack_params x_init")
+    return (f"[30 ocp+native] run_ocp --debug defaults on the card: first "
+            f"call {r['first_ms']:.1f} ms, then {r['ms']:.1f} ms, max "
+            f"violation {r['max_violation']:.4g} (< 0.05), avg tau_diff "
+            f"{r['tau_diff']:.3g} (< 1e-3), avg tau_b_norm "
+            f"{r['tau_b_norm']:.3g}; native.pack_params of its state: "
+            f"{packed.shape[0]} values (library "
+            f"{os.path.relpath(native.library_path(), ROOT)})")
 
 
 def run_ticks(step, carry, target, dt, warm, timed):
@@ -1087,6 +1403,8 @@ def main():
                          "ticks to FILE.seq and of three ticks of each "
                          "variant path to FILE.rnea_noacc, FILE.acc_nobase "
                          "and FILE.euler, after every timed phase")
+    ap.add_argument("--export-worker", nargs=2, metavar=("LABEL", "DIR"),
+                    help=argparse.SUPPRESS)  # phase 27's worker processes
     args = ap.parse_args()
 
     import torch
@@ -1094,8 +1412,18 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
+    if args.export_worker:
+        return export_worker(*args.export_worker)
+    with contextlib.ExitStack() as stack:
+        return run(args, stack)
+
+
+def run(args, stack):
+    """Phases 1-31; ``stack`` ends the export workers and their files."""
     import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
 
     import tpu_locoman_torch as T
     from tpu_locoman_torch import _build, rbda, rnea_derivs
@@ -1127,6 +1455,10 @@ def main():
             if "registers" in ln or "Compiling entry" in ln]
     plog(f"[2 build] kernels built and loaded in {time.time() - t0:.1f} s "
         f"(nvcc {_build.build_seconds:.1f} s); ptxas: {' | '.join(regs)}")
+    export_dir = stack.enter_context(tempfile.TemporaryDirectory())
+    workers = start_export_workers(export_dir)
+    stack.callback(lambda: [p.kill() for p in workers.values()
+                            if p.poll() is None])
 
     # ---- 3. K1 against its plain version ---------------------------------
     rng = np.random.default_rng(0)
@@ -1255,12 +1587,12 @@ def main():
     batch, warm, timed = 512, 2, 20
     chol_base.launches = rnea_derivs.launches = fac_whole.launches = 0
     fl, _ = run_flagship(dev, ship, batch, warm, timed)
-    k1_launches, k2_launches = chol_base.launches, rnea_derivs.launches
+    k1_launches, k2_launches, k3_flag = read_launches()
     ticks = warm + timed
     # one K1 launch per node of the one factorization per tick (N+1 = 15)
     check(k1_launches == 15 * ticks, f"K1 launches {k1_launches}")
     check(k2_launches == ticks, f"K2 launches {k2_launches}")
-    check(fac_whole.launches == 0, f"K3 launches {fac_whole.launches}")
+    check(k3_flag == 0, f"K3 launches {k3_flag}")
     check(fl["viol_mean"] <= VIOL_GATE,
           f"violation mean {fl['viol_mean']} > {VIOL_GATE}")
     tick_ms = fl["tick_ms"]
@@ -1623,11 +1955,12 @@ def main():
     plog(line)
 
     # ---- 22-26. the formulation variants and the ops modules ---------------
-    var_launches, var_peak = {}, {}
+    var_launches, var_peak, var_ms = {}, {}, {}
     for name in VARIANTS:
         r, var_launches[name], var_peak[name], vmpc, line = phase_variant(
             dev, ship, spreads, name, ms_mean, batch)
         plog(line)
+        var_ms[name] = float(np.mean(r["tick_ms"]))
         _, _, dyn, robot, fkw, _ = VARIANTS[name]
         profiles.append((VARIANTS[name][0] + "b", f"three {name} ticks",
                          f"{args.profile}.{name}", float(np.mean(
@@ -1641,6 +1974,16 @@ def main():
     del noacc
     plog(phase_ops(dev, ship))
 
+    # ---- 27-30. export, the dry run, the examples and the native runtime ---
+    exported, line = phase_export(workers, export_dir)
+    plog(line)
+    plog(phase_quiet_host(dev, ship, batch, ms_mean, var_ms["rnea_noacc"]))
+    dry, line = phase_dryrun()
+    plog(line)
+    _, ex_launches, line = phase_examples(dev)
+    plog(line)
+    plog(phase_ocp_native(dev))
+
     for tag, what, path, tick_ms, ticks_of in (profiles if args.profile
                                                 else []):
         dev_ms, n_k, wall = profile_ticks(*ticks_of(), path)
@@ -1649,16 +1992,22 @@ def main():
              f"{tick_ms:.2f} without (idle {100 * (1 - dev_ms / tick_ms):.1f}%"
              f" of the unprofiled tick)")
 
-    # ---- 27. kernels ------------------------------------------------------------
+    # ---- 31. kernels ------------------------------------------------------------
     k3_main = next(r for r in k3_rows if (r["K"], r["Bs"]) == (14, 1))
     k2_main = k2_rows["B2G 7168"]
     # (K1, K2, K3) launches of every path's driven run
-    paths = {"flagship": (k1_launches, k2_launches, 0),
+    paths = {"flagship": (k1_launches, k2_launches, k3_flag),
              "accurate_b1": acc_launches, "accurate_b512": prod_launches,
              "whole_body_aba": ab_launches, "sequential": sq_launches,
              "n30_sequential": n30["sequential"][1],
              "n30_cyclic": n30["cyclic"][1], "scaled": sc_launches,
-             "b2": b2_launches, "parity": par_launches, **var_launches}
+             "b2": b2_launches, "parity": par_launches, **var_launches,
+             "export_flagship": tuple(exported["flagship"]["launches"]),
+             "export_accurate_b1": tuple(
+                 exported["accurate b1"]["launches"]),
+             "dryrun_gloo_rank0": tuple(
+                 dry["gloo x2 on one card"]["rank0_launches"]),
+             "run_mpc": ex_launches}
 
     def per_path(i):
         return {name: n[i] for name, n in paths.items()}

@@ -5,7 +5,12 @@ factorizer, and the accurate single-robot path end to end.
 The inputs are made with numpy from a seed and go through both packages on
 the CPU, where the port's kernel wrappers run their plain versions (K3's is
 the recursion of ``factorize(chol_impl="cholinv")``). Each tolerance is
-stated beside the gap measured on the CPU."""
+stated beside the gap measured on the CPU. The accurate rollout's JAX
+ticks are recorded in tests/data/torch_accurate_rollout_jax.npz
+(``JAX_PLATFORMS=cpu python tests/test_torch_accurate.py`` rewrites
+it)."""
+
+import os
 
 import numpy as np
 import pytest
@@ -25,6 +30,11 @@ from tpu_locoman_torch import convert  # noqa: E402
 from tpu_locoman_torch.solver import fac_whole  # noqa: E402
 from tpu_locoman_torch.solver import qp as tqp  # noqa: E402
 from tpu_locoman_torch.solver import sqp as tsqp  # noqa: E402
+
+# tpu_locoman's Go2 N=6 accurate rollout (_jax_accurate_rollout), written
+# by running this file as a script
+ACC_ROLLOUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                           "torch_accurate_rollout_jax.npz")
 
 
 def _random_qps(Bs=2, N=5, m=12, ndx=8, nu=5, seed=0, c_eye=None):
@@ -227,45 +237,80 @@ def test_accurate_preset_matches_jax():
                  device="cpu").solver.cfg == out
 
 
+def _accurate_configs(mod, factorizer):
+    return mod.SQPConfig.accurate()._replace(
+        admm=mod.ADMMConfig(iters=10, factorizer=factorizer))
+
+
+ACC_TARGETS = np.array([[0.2, 0, 0, 0, 0, 0], [0.1, 0, 0, 0, 0, 0.2]],
+                       np.float32)
+
+
+def _jax_accurate_rollout(ticks=5):
+    """tpu_locoman's Go2 N=6 accurate rollout ("cholinv"), batch 2: its
+    initial carry and, per tick, x and the stats."""
+    jrob = J.Go2()
+    jrob.set_gait_sequence("trot", 0.8)
+    jm = J.MPC(jrob, dynamics="whole_body_rnea", nodes=6,
+               config=_accurate_configs(J, "cholinv"))
+    jc = jpar.batched_init(jm, 2)
+    c0 = convert.carry_to_numpy(convert.carry_from_numpy(
+        jax.device_get(jc), "cpu"))
+    out = {"init/" + k: v for k, v in (
+        ("x_init", c0["x_init"]), ("tau_prev", c0["tau_prev"]),
+        *c0["solver_state"].items())}
+    jstep = jpar.batched_step(jm, donate=False)
+    for k in range(ticks):
+        jc, js = jstep(jc, jnp.float32(np.float32(k * 0.01)),
+                       jnp.asarray(ACC_TARGETS))
+        out[f"{k}/x"] = np.asarray(jc.x_init)
+        out.update({f"{k}/{n}": np.asarray(js[n])
+                    for n in ("max_violation", "alpha", "status")})
+    return out
+
+
+def _record_accurate_rollout():
+    np.savez_compressed(ACC_ROLLOUT, **_jax_accurate_rollout())
+    print("wrote", ACC_ROLLOUT)
+
+
 def test_go2_accurate_rollout_matches_jax_tick_by_tick():
     """The slice end to end at a small size: Go2 whole_body_rnea N=6,
     SQPConfig.accurate() with the port's factorizer "pallas" (K3's plain
     version here) and JAX's "cholinv" (the same recurrence without the
-    interpreter), batch 2 with distinct targets, 5 ticks. s=78 and
-    m_dense=86, so (N+1)*s = 546 is even and every eq_project hits the
-    median trap.
+    interpreter), batch 2 with distinct targets, 5 ticks, from JAX's
+    initial carry; JAX's ticks are recorded in ACC_ROLLOUT (one accurate
+    JAX tick compiles for over a minute on a CPU). s=78 and m_dense=86,
+    so (N+1)*s = 546 is even and every eq_project hits the median trap.
 
     Measured gap on the CPU: x within 1.5e-4, max_violation within 1.1e-5
     absolute (JAX's own per-tick violations are 1.0e-5 to 2.7e-5). Held: x
     atol 1e-3; max_violation <= 1e-3 on both sides and within 1e-4
     absolute of JAX; alpha and status equal."""
-    targets = np.array([[0.2, 0, 0, 0, 0, 0], [0.1, 0, 0, 0, 0, 0.2]],
-                       np.float32)
-    jrob, trob = J.Go2(), T.Go2()
-    jrob.set_gait_sequence("trot", 0.8)
+    trob = T.Go2()
     trob.set_gait_sequence("trot", 0.8)
-    jcfg = J.SQPConfig.accurate()._replace(
-        admm=J.ADMMConfig(iters=10, factorizer="cholinv"))
-    tcfg = T.SQPConfig.accurate()._replace(
-        admm=T.ADMMConfig(iters=10, factorizer="pallas"))
-    jm = J.MPC(jrob, dynamics="whole_body_rnea", nodes=6, config=jcfg)
-    tm = T.MPC(trob, dynamics="whole_body_rnea", nodes=6, config=tcfg,
-               device="cpu")
+    tm = T.MPC(trob, dynamics="whole_body_rnea", nodes=6,
+               config=_accurate_configs(T, "pallas"), device="cpu")
     assert tm.trans.s == 78 and tm.trans.m_dense == 86
-    jc = jpar.batched_init(jm, 2)
-    tc = convert.carry_from_numpy(jax.device_get(jc), "cpu")
-    jstep = jpar.batched_step(jm, donate=False)
+    with np.load(ACC_ROLLOUT) as d:
+        rec = {k: d[k] for k in d.files}
+    tc = convert.carry_from_numpy(
+        {"x_init": rec["init/x_init"], "tau_prev": rec["init/tau_prev"],
+         "solver_state": {k: rec["init/" + k] for k in ("Z", "z_admm",
+                                                         "y_admm")}}, "cpu")
     for k in range(5):
         t = np.float32(k * 0.01)
-        jc, js = jstep(jc, jnp.float32(t), jnp.asarray(targets))
-        tc, ts = tm.step(tc, torch.tensor(t), torch.tensor(targets))
-        np.testing.assert_allclose(tc.x_init.numpy(), np.asarray(jc.x_init),
+        tc, ts = tm.step(tc, torch.tensor(t), torch.tensor(ACC_TARGETS))
+        np.testing.assert_allclose(tc.x_init.numpy(), rec[f"{k}/x"],
                                    atol=1e-3, err_msg=f"x, tick {k}")
-        jv, tv = np.asarray(js["max_violation"]), ts["max_violation"].numpy()
+        jv, tv = rec[f"{k}/max_violation"], ts["max_violation"].numpy()
         assert jv.max() <= 1e-3 and tv.max() <= 1e-3, (k, jv, tv)
         np.testing.assert_allclose(tv, jv, rtol=0, atol=1e-4,
                                    err_msg=f"max_violation, tick {k}")
-        np.testing.assert_array_equal(ts["alpha"].numpy(),
-                                      np.asarray(js["alpha"]))
+        np.testing.assert_array_equal(ts["alpha"].numpy(), rec[f"{k}/alpha"])
         np.testing.assert_array_equal(ts["status"].numpy(),
-                                      np.asarray(js["status"]))
+                                      rec[f"{k}/status"])
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    _record_accurate_rollout()

@@ -7,7 +7,11 @@ quantities, f32 roundoff); torques, mass matrices, centroidal maps atol
 1e-5 * (max|ref| + 1); derivatives (ABA's, the frame Jacobian) atol
 2e-4 * (max|ref| + 1), as tests/test_torch_rbda.py holds them; the
 identities of tests/test_euler_base.py at its own tolerances (EOM against
-RNEA 3e-3 * scale, ABA's inverse 5e-3)."""
+RNEA 3e-3 * scale, ABA's inverse 5e-3). JAX's jacfwd of rnea and aba is
+recorded in tests/data/torch_euler_jacobians_jax.npz, which
+``JAX_PLATFORMS=cpu python tests/test_torch_euler.py`` rewrites."""
+
+import os
 
 import numpy as np
 import pytest
@@ -25,6 +29,10 @@ from tpu_locoman_torch import lie as tl  # noqa: E402
 from tpu_locoman_torch import rbda as tr  # noqa: E402
 
 ROBOTS = ["Go2", "B2G"]
+# jax.jacfwd of the JAX package's rnea and aba on _setup's inputs, written
+# by running this file as a script
+JACOBIANS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                         "torch_euler_jacobians_jax.npz")
 FEET = ["FR_foot", "FL_foot", "RR_foot", "RL_foot"]
 
 
@@ -180,24 +188,56 @@ def test_eom_and_aba_inverse(name):
     np.testing.assert_allclose(a_rt.numpy(), a, rtol=5e-3, atol=5e-3)
 
 
+def _jax_jacobians(name):
+    """jax.jacfwd of the JAX package's rnea and aba on _setup(name)'s
+    inputs: (tau, drnea/d(q, v, a, f), daba/d(q, v, tau, f))."""
+    jrob, _, q, v, a, f = _setup(name)
+    m = jrob.model
+    drnea = jax.vmap(jax.jacfwd(lambda *x: jr.rnea(m, *x[:3], FEET, x[3]),
+                                argnums=(0, 1, 2, 3)))(q, v, a, f)
+    tau = np.asarray(jax.vmap(lambda *x: jr.rnea(m, *x[:3], FEET, x[3]))(
+        q, v, a, f))
+    daba = jax.vmap(jax.jacfwd(lambda *x: jr.aba(m, *x[:3], FEET, x[3]),
+                               argnums=(0, 1, 2, 3)))(q, v, tau, f)
+    out = {"tau": tau}
+    for k, blocks in (("drnea", drnea), ("daba", daba)):
+        out.update({f"{k}{i}": np.asarray(b) for i, b in enumerate(blocks)})
+    return out
+
+
+def _jacobians_recording():
+    """_jax_jacobians of every robot, as JACOBIANS holds them."""
+    return {f"{name}/{k}": v for name in ROBOTS
+            for k, v in _jax_jacobians(name).items()}
+
+
+def _record_jacobians():
+    """Write JACOBIANS."""
+    np.savez_compressed(JACOBIANS, **_jacobians_recording())
+    print("wrote", JACOBIANS)
+
+
 @pytest.mark.parametrize("name", ROBOTS)
 def test_aba_and_rnea_jacobians_match_jax(name):
     """On the Euler base the derivative blocks come from forward-mode AD
     over the plain recursion (no kernel), in chart coordinates: against
-    jax.jacfwd of the JAX package's rnea and aba."""
-    jrob, trob, q, v, a, f = _setup(name)
-    m, tm = jrob.model, trob.model
+    jax.jacfwd of the JAX package's rnea and aba, recorded in JACOBIANS
+    (op by op, jax.jacfwd of the recursions takes one to three minutes of
+    the CPU per robot)."""
+    _, trob, q, v, a, f = _setup(name)
+    tm = trob.model
+    with np.load(JACOBIANS) as d:
+        ref = {k.split("/", 1)[1]: d[k] for k in d.files
+               if k.startswith(name + "/")}
     tq, tv, ta, tf = _t(q, v, a, f)
     D = tr.rnea_jacobians(tm, tq, tv, ta, FEET, tf)
-    ref = jax.vmap(jax.jacfwd(lambda *x: jr.rnea(m, *x[:3], FEET, x[3]),
-                              argnums=(0, 1, 2, 3)))(q, v, a, f)
-    for d, r in zip(D, ref):
-        _close(d, r, rel=2e-4)
-    tau = np.asarray(jax.vmap(lambda *x: jr.rnea(m, *x[:3], FEET, x[3]))(
-        q, v, a, f))
-    out = tr.aba_derivatives(tm, tq, tv, torch.tensor(tau), FEET, tf)
-    ref = jax.vmap(jax.jacfwd(lambda *x: jr.aba(m, *x[:3], FEET, x[3]),
-                              argnums=(0, 1, 2, 3)))(q, v, tau, f)
+    for i, d in enumerate(D):
+        _close(d, ref[f"drnea{i}"], rel=2e-4)
+    out = tr.aba_derivatives(tm, tq, tv, torch.tensor(ref["tau"]), FEET, tf)
     _close(out[0], a, rel=5e-3)
-    for o, r in zip(out[1:], ref):
-        _close(o, r, rel=2e-3)
+    for i, o in enumerate(out[1:]):
+        _close(o, ref[f"daba{i}"], rel=2e-3)
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    _record_jacobians()

@@ -105,3 +105,55 @@ def test_mpc_defaults_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         T.geometric_dts(0.01, 0.08, 3)
     assert T.MPC(robot, nodes=3, device="cpu").device.type == "cpu"
+
+
+_NEW_MODULES = r"""
+import sys
+sys.modules["jax"] = None  # any import of jax now raises
+sys.path.insert(0, sys.argv[1])
+import tpu_locoman_torch  # noqa: F401
+from tpu_locoman_torch import (aot, distributed, dryrun, native, parallel,
+                               viz)  # noqa: F401
+from tpu_locoman_torch.examples import run_mpc, run_ocp  # noqa: F401
+bad = [m for m, mod in sys.modules.items() if mod is not None and (
+    m == "jax" or m.startswith("jax.") or m == "tpu_locoman"
+    or m.startswith("tpu_locoman."))]
+assert not bad, bad
+print("OK")
+"""
+
+
+def test_new_modules_import_without_jax():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _NEW_MODULES, ROOT],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.startswith("OK")
+
+
+def test_native_builds_outside_native_dir(tmp_path):
+    """Importing and using the port's native bindings writes nothing under
+    native/ (the JAX package's build product lives there): run in a tree
+    whose native/ holds only the source and whose package links to the
+    port's."""
+    import shutil
+
+    shutil.copytree(os.path.join(ROOT, "native"), tmp_path / "native",
+                    ignore=shutil.ignore_patterns("*.so"))
+    before = sorted(os.listdir(tmp_path / "native"))
+    os.symlink(PKG, tmp_path / "tpu_locoman_torch")
+    script = ("import sys; sys.modules['jax'] = None\n"
+              "sys.path.insert(0, sys.argv[1])\n"
+              "from tpu_locoman_torch import native\n"
+              "assert len(native.geometric_dts(0.01, 0.08, 14)) == 14\n"
+              "print(native.library_path())\n")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", script, str(tmp_path)],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert sorted(os.listdir(tmp_path / "native")) == before
+    lib = out.stdout.strip().splitlines()[-1]
+    assert lib.startswith(str(tmp_path / "tpu_locoman_torch" / "_build"))
+    assert os.path.exists(lib)

@@ -4,7 +4,10 @@ tick, from the same initial carry (carried across by convert.py).
 Go2 whole_body_rnea N=6, the SHIPPING.json hot config (1 SQP iteration, 10
 ADMM sweeps, corrector 5, 2 line-search trials, flip reset, warm shift)
 with JAX factorizer "cholinv" (the math of "cholinv_pb" without the Pallas
-interpreter), batch 2 with distinct targets, 5 ticks.
+interpreter), batch 2 with distinct targets, 5 ticks. The JAX ticks are
+recorded in tests/data/torch_jax_rollouts.npz with JAX's initial carry
+(``JAX_PLATFORMS=cpu python tests/test_torch_mpc.py`` rewrites it: each
+JAX tick compiles for a minute or more on a CPU).
 
 Measured gap on the CPU: x within 1.1e-5, max_violation within 4e-7
 absolute. Tolerances: x atol 1e-3 and max_violation 5% relative + 1e-3
@@ -43,24 +46,85 @@ def _hot(mod, factorizer):
                          admm=mod.ADMMConfig(iters=10, factorizer=factorizer))
 
 
-def _rollout_pair(name, N, ticks, targets):
-    jrob, trob = getattr(J, name)(), getattr(T, name)()
+# the JAX side of every _rollout_pair rollout the tests run, by key:
+# (robot, N, ticks, targets); written by running this file as a script
+ROLLOUTS = os.path.join(ROOT, "tests", "data", "torch_jax_rollouts.npz")
+RECORDED = {
+    "go2_n6": ("Go2", 6, 5, [[0.2, 0, 0, 0, 0, 0], [0.1, 0, 0, 0, 0, 0.2]]),
+    "b2g_n3": ("B2G", 3, 1, [[0.2, 0, 0, 0, 0, 0], [0.1, 0, 0, 0, 0, 0]]),
+}
+_STATS = ("max_violation", "alpha", "status")
+
+
+def _jax_rollout(name, N, ticks, targets):
+    """tpu_locoman's batched rollout on the hot config with "cholinv" (the
+    math of "cholinv_pb" without the Pallas interpreter): its initial carry
+    and, per tick, x and the stats (each JAX tick compiles for a minute or
+    more on a CPU)."""
+    jrob = getattr(J, name)()
     jrob.set_gait_sequence("trot", 0.8)
-    trob.set_gait_sequence("trot", 0.8)
     jm = J.MPC(jrob, dynamics="whole_body_rnea", nodes=N, flip_reset=True,
                warm_shift=True, config=_hot(J, "cholinv"))
+    targets = np.asarray(targets, np.float32)
+    jc = jpar.batched_init(jm, targets.shape[0])
+    c0 = convert.carry_to_numpy(convert.carry_from_numpy(
+        jax.device_get(jc), "cpu"))
+    out = {"init/" + k: v for k, v in (
+        ("x_init", c0["x_init"]), ("tau_prev", c0["tau_prev"]),
+        *c0["solver_state"].items())}
+    jstep = jpar.batched_step(jm, donate=False)
+    for k in range(ticks):
+        jc, js = jstep(jc, jnp.float32(np.float32(k * 0.01)),
+                       jnp.asarray(targets))
+        out[f"{k}/x"] = np.asarray(jc.x_init)
+        out.update({f"{k}/{n}": np.asarray(js[n]) for n in _STATS})
+    return out
+
+
+def _rollouts_recording():
+    """_jax_rollout of every RECORDED case, as ROLLOUTS holds them."""
+    return {f"{key}/{k}": v for key, case in RECORDED.items()
+            for k, v in _jax_rollout(*case).items()}
+
+
+def _record_rollouts():
+    """Write ROLLOUTS."""
+    np.savez_compressed(ROLLOUTS, **_rollouts_recording())
+    print("wrote", ROLLOUTS)
+
+
+class _Tick:
+    """A recorded JAX tick in the shape _check_tick reads."""
+
+    def __init__(self, rec, k):
+        self.x_init = rec[f"{k}/x"]
+        self.stats = {n: rec[f"{k}/{n}"] for n in _STATS}
+
+
+def _rollout_pair(name, N, ticks, targets):
+    """The port's batched rollout from tpu_locoman's initial carry, tick by
+    tick beside the recorded JAX tick: yields (k, JAX tick, JAX stats,
+    port carry, port stats)."""
+    key = next(k for k, c in RECORDED.items() if c[:3] == (name, N, ticks))
+    np.testing.assert_array_equal(targets,
+                                  np.asarray(RECORDED[key][3], np.float32))
+    with np.load(ROLLOUTS) as d:
+        rec = {k[len(key) + 1:]: d[k] for k in d.files
+               if k.startswith(key + "/")}
+    trob = getattr(T, name)()
+    trob.set_gait_sequence("trot", 0.8)
     tm = T.MPC(trob, dynamics="whole_body_rnea", nodes=N, flip_reset=True,
                warm_shift=True, config=_hot(T, "cholinv_pb"), device="cpu")
-    B = targets.shape[0]
-    jc = jpar.batched_init(jm, B)
-    tc = convert.carry_from_numpy(jax.device_get(jc), "cpu")
-    jstep = jpar.batched_step(jm, donate=False)
+    tc = convert.carry_from_numpy(
+        {"x_init": rec["init/x_init"], "tau_prev": rec["init/tau_prev"],
+         "solver_state": {k: rec["init/" + k] for k in ("Z", "z_admm",
+                                                         "y_admm")}}, "cpu")
     tstep = T.batched_step(tm)
     for k in range(ticks):
         t = np.float32(k * 0.01)
-        jc, js = jstep(jc, jnp.float32(t), jnp.asarray(targets))
         tc, ts = tstep(tc, torch.tensor(t), torch.tensor(targets))
-        yield k, jc, js, tc, ts
+        ref = _Tick(rec, k)
+        yield k, ref, ref.stats, tc, ts
 
 
 def _check_tick(k, jc, js, tc, ts):
@@ -317,3 +381,8 @@ def test_admm_config_precision_fields(field):
     from tpu_locoman_torch.solver import qp as tqp
     with pytest.raises(ValueError, match="float32 only"):
         tqp._check_config(cfg._replace(**{field: "high"}))
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    _record_rollouts()

@@ -1,6 +1,7 @@
 """One B2G + Z1 arm tick (whole_body_rnea, N=3, hot config, batch 2) of
 the port against tpu_locoman's batched tick, from the same carry — the arm
-EE and external-force rows through the whole solver. Measured gap on the
+EE and external-force rows through the whole solver. The JAX tick is
+recorded (tests/test_torch_mpc.py's ROLLOUTS). Measured gap on the
 CPU: x within 8.2e-5, max_violation within 2.3e-4 absolute; the
 tolerances are test_torch_mpc.py's (x atol 1e-3, max_violation 5% + 1e-3,
 alpha and status equal)."""

@@ -8,8 +8,11 @@ Tolerances: the carry round trip is exact, and a resumed tick equals the
 uninterrupted one exactly (the same arithmetic on the same inputs); the
 row groups and the structure report's counts equal JAX's, its nonzero
 shares within 1% absolute (entries near the 1e-6 threshold may land on
-either side of it in f32)."""
+either side of it in f32). JAX's row groups and structure reports are
+recorded in tests/data/torch_structure_jax.json, which
+``JAX_PLATFORMS=cpu python tests/test_torch_ops.py`` rewrites."""
 
+import json
 import os
 
 import numpy as np
@@ -27,6 +30,10 @@ import tpu_locoman_torch as T  # noqa: E402
 from tpu_locoman_torch import checkpoint, diagnostics  # noqa: E402
 
 CONFIGS = [("centroidal_acc", {}), ("whole_body_rnea", {"include_acc": False})]
+# the JAX package's row groups and structure report of each configuration,
+# written by running this file as a script
+STRUCTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                         "torch_structure_jax.json")
 TARGET = [0.1, 0, 0, 0, 0, 0]
 
 
@@ -64,11 +71,13 @@ def test_save_load_resume_is_exact(tmp_path):
 def test_carry_files_cross_between_packages(tmp_path):
     """The JAX package's carry (one scenario) loads in the port with a
     scenario axis of one; the port's loads in the JAX package with the
-    same arrays; the keys are the same."""
+    same arrays; the keys are the same. The carry has the step's shapes
+    and numpy-seeded values in every entry: the file format is what is
+    held here, and a JAX tick to fill it would cost a two-minute compile."""
     jm, _ = _mpcs("centroidal_acc", {})
-    jc = jm.init_carry()
-    jc, _ = jax.jit(lambda c: jm.step(c, jnp.float32(0.0),
-                                      jnp.asarray(TARGET)))(jc)
+    rng = np.random.default_rng(7)
+    jc = jax.tree.map(lambda x: jnp.asarray(rng.standard_normal(
+        np.shape(x)).astype(np.float32)), jm.init_carry())
     jpath = jck.save_carry(str(tmp_path / "jax"), jc)
     tc = checkpoint.load_carry(jpath, device="cpu")
     assert tc.x_init.shape == (1,) + np.shape(jc.x_init)
@@ -85,13 +94,22 @@ def test_carry_files_cross_between_packages(tmp_path):
         assert sorted(a.files) == sorted(b.files) == sorted(checkpoint.KEYS)
 
 
+def _structure_key(dyn, kw):
+    return dyn + "".join(f",{k}={v}" for k, v in sorted(kw.items()))
+
+
 @pytest.mark.parametrize("dyn,kw", CONFIGS)
 def test_row_groups_and_structure_match_jax(dyn, kw):
-    jm, tm = _mpcs(dyn, kw)
+    """Against the JAX package's row_group_layout and structure_check of
+    the same MPC, recorded in STRUCTURE (JAX's structure_check linearizes
+    op by op: two to four minutes of the CPU per configuration)."""
+    _, tm = _mpcs(dyn, kw)
+    with open(STRUCTURE) as f:
+        fix = json.load(f)[_structure_key(dyn, kw)]
     assert diagnostics.row_group_layout(tm.trans) == [
-        tuple(g) for g in jdiag.row_group_layout(jm.trans)]
+        tuple(g) for g in fix["row_groups"]]
     assert tm.trans.split_ok == (dyn == "centroidal_acc")
-    rep, ref = diagnostics.structure_check(tm), jdiag.structure_check(jm)
+    rep, ref = diagnostics.structure_check(tm), fix["structure"]
     assert set(rep) == set(ref)
     for k, v in ref.items():
         if k.endswith("_frac"):
@@ -126,3 +144,26 @@ def test_profile_trace_writes_a_chrome_trace(tmp_path):
     path = os.path.join(d, "trace.json")
     assert os.path.getsize(path) > 0
     assert "traceEvents" in open(path).read()
+
+
+def _structure_recording():
+    """JAX's row groups and structure report of each configuration."""
+    out = {}
+    for dyn, kw in CONFIGS:
+        jm, _ = _mpcs(dyn, kw)
+        out[_structure_key(dyn, kw)] = {
+            "row_groups": [list(g) for g in jdiag.row_group_layout(jm.trans)],
+            "structure": jdiag.structure_check(jm)}
+    return out
+
+
+def _make_structure_fixture():
+    """Record _structure_recording in STRUCTURE."""
+    with open(STRUCTURE, "w") as f:
+        json.dump(_structure_recording(), f, indent=1)
+    print("wrote", STRUCTURE)
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    _make_structure_fixture()

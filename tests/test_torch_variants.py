@@ -5,7 +5,10 @@ whole_body_rnea with include_acc=False) and the Euler-ZYX base
 (use_quaternion=False) on the split path, at Go2 N=3.
 
 - Transcription.linearize (g, G, B, C) against the JAX package's on the
-  same iterate, within 2e-4 * (max|ref| + 1);
+  same iterate, within 2e-4 * (max|ref| + 1), recorded with JAX's
+  structure attributes in tests/data/torch_variants_linearize_jax.npz
+  (``JAX_PLATFORMS=cpu python tests/test_torch_variants.py`` rewrites it;
+  the JAX linearize compiles for one to two minutes per case on a CPU);
 - the whole-stage path against the port's own split path where both
   apply (the default formulations), within 1e-4 * (max|ref| + 1);
 - rbda.rnea_ad and rbda.frame_kin_ad: their forward-mode rules against
@@ -23,6 +26,7 @@ whole_body_rnea with include_acc=False) and the Euler-ZYX base
 """
 
 import functools
+import json
 import os
 import sys
 
@@ -44,6 +48,10 @@ from test_torch_mpc import _check_tick, _hot  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(ROOT, "tests", "data", "torch_golden_variants.json")
+# the JAX package's linearize of each case (_jax_linearize), written by
+# running this file as a script
+LINEARIZE = os.path.join(ROOT, "tests", "data",
+                         "torch_variants_linearize_jax.npz")
 LIN_TOL = 2e-4
 # (case, robot keyword arguments, dynamics, formulation keyword arguments)
 WHOLE = [("rnea_noacc", {}, "whole_body_rnea", {"include_acc": False}),
@@ -62,42 +70,76 @@ def _close(out, ref, rel, err_msg=""):
                                err_msg=err_msg)
 
 
-@functools.lru_cache(maxsize=None)
-def _pair(case, N=3, t=0.13, seed=3):
-    """The JAX and port MPC of a case on Go2, one warm-started iterate plus
-    seeded noise at time t (mixed contact and swing nodes), and the JAX
-    package's linearize there (one jitted call)."""
+VEL = [0.2, 0.0, 0.0, 0.0, 0.0, 0.1]
+FORM_ATTRS = ("nx", "ndx", "nu", "n_dyn", "n_prop_rows", "f_idx", "tau_idx")
+
+
+def _jax_linearize(case, N=3, t=0.13, seed=3):
+    """The JAX package's side of a case on Go2: one warm-started iterate
+    plus seeded noise at time t (mixed contact and swing nodes), the
+    structure the port must share, and the linearize there (one jitted
+    call, which compiles for one to two minutes on a CPU)."""
     robot_kw, dyn, form_kw = CASES[case]
-    jrob, trob = J.Go2(**robot_kw), T.Go2(**robot_kw)
+    jrob = J.Go2(**robot_kw)
     jrob.set_gait_sequence("trot", 0.8)
-    trob.set_gait_sequence("trot", 0.8)
     jm = J.MPC(jrob, dynamics=dyn, nodes=N, **form_kw)
-    tm = T.MPC(trob, dynamics=dyn, nodes=N, device="cpu", **form_kw)
     carry = jm.init_carry()
-    vel = jnp.array([0.2, 0.0, 0.0, 0.0, 0.0, 0.1])
+    vel = jnp.array(VEL)
     shared = jm.make_shared(carry.x_init, vel, tau_prev=carry.tau_prev)
     sp = jm.make_stage_params(jnp.float32(t))
     rng = np.random.default_rng(seed)
     Z = jm.warm_start_Z(carry.solver_state.Z, sp, shared)
     Z = Z + jnp.asarray(rng.normal(size=Z.shape) * 0.02, dtype=jnp.float32)
-    tsp = tm.make_stage_params(torch.tensor([t], dtype=torch.float32))
-    tsh = tm.make_shared(torch.tensor(np.asarray(carry.x_init))[None],
-                         torch.tensor(np.asarray(vel)))
-    ref = jax.device_get(jax.jit(
+    g, G, B, C = jax.device_get(jax.jit(
         lambda Z_: jm.trans.linearize(Z_, sp, shared))(Z))
-    return jm, tm, torch.tensor(np.asarray(Z))[None], tsp, tsh, ref
+    meta = {"split_ok": bool(jm.trans.split_ok),
+            "c_eye_rows": jm.trans.c_eye_rows,
+            **{a: getattr(jm.form, a) for a in FORM_ATTRS}}
+    return {"meta": np.asarray(json.dumps(meta)), "Z": np.asarray(Z),
+            "x_init": np.asarray(carry.x_init),
+            "box_slots": np.asarray(jm.trans.box_slots), "g": g, "G": G,
+            "B": B, "C": C}
+
+
+def _linearize_recording():
+    """_jax_linearize of every case, as LINEARIZE holds it."""
+    return {f"{case}/{k}": v for case in CASES
+            for k, v in _jax_linearize(case).items()}
+
+
+def _record_linearize():
+    """Write LINEARIZE."""
+    np.savez_compressed(LINEARIZE, **_linearize_recording())
+    print("wrote", LINEARIZE)
+
+
+@functools.lru_cache(maxsize=None)
+def _pair(case, N=3, t=0.13):
+    """The port MPC of a case on Go2 at the recorded JAX iterate: (JAX's
+    structure, JAX's arrays, the MPC, Z, stage and shared parameters,
+    JAX's (g, G, B, C))."""
+    robot_kw, dyn, form_kw = CASES[case]
+    trob = T.Go2(**robot_kw)
+    trob.set_gait_sequence("trot", 0.8)
+    tm = T.MPC(trob, dynamics=dyn, nodes=N, device="cpu", **form_kw)
+    with np.load(LINEARIZE) as d:
+        rec = {k.split("/", 1)[1]: d[k] for k in d.files
+               if k.startswith(case + "/")}
+    meta = json.loads(str(rec["meta"]))
+    tsp = tm.make_stage_params(torch.tensor([t], dtype=torch.float32))
+    tsh = tm.make_shared(torch.tensor(rec["x_init"])[None], torch.tensor(VEL))
+    ref = tuple(rec[k] for k in ("g", "G", "B", "C"))
+    return meta, rec, tm, torch.tensor(rec["Z"])[None], tsp, tsh, ref
 
 
 @pytest.mark.parametrize("case", [c[0] for c in WHOLE + EULER])
 def test_linearize_matches_jax(case):
-    jm, tm, tZ, tsp, tsh, ref = _pair(case)
-    assert tm.trans.split_ok == jm.trans.split_ok == case.startswith("euler")
-    assert tm.trans.c_eye_rows == jm.trans.c_eye_rows
-    assert tm.trans.box_slots.tolist() == np.asarray(
-        jm.trans.box_slots).tolist()
-    for attr in ("nx", "ndx", "nu", "n_dyn", "n_prop_rows", "f_idx",
-                 "tau_idx"):
-        assert getattr(tm.form, attr) == getattr(jm.form, attr), attr
+    meta, rec, tm, tZ, tsp, tsh, ref = _pair(case)
+    assert tm.trans.split_ok == meta["split_ok"] == case.startswith("euler")
+    assert tm.trans.c_eye_rows == meta["c_eye_rows"]
+    assert tm.trans.box_slots.tolist() == rec["box_slots"].tolist()
+    for attr in FORM_ATTRS:
+        assert getattr(tm.form, attr) == meta[attr], attr
     out = tm.trans.linearize(tZ, tsp, tsh)
     for label, o, r in zip(("g", "G", "B", "C"), out, ref):
         _close(o[0], r, LIN_TOL, f"{case} {label}")
@@ -199,7 +241,7 @@ def test_rnea_ad_rule_runs_once_on_plain_tensors(monkeypatch):
         return plain(model, q, *args)
 
     monkeypatch.setattr(rnea_derivs, "rnea_derivatives", spy)
-    _, tm, tZ, tsp, tsh, _ = _pair("rnea_noacc")
+    _, _, tm, tZ, tsp, tsh, _ = _pair("rnea_noacc")
     tm.trans.linearize(tZ, tsp, tsh)
     assert len(seen) == 1, seen
     assert not any(seen[0][:-2]) and seen[0][-2:] == [(3, 19), True], seen
@@ -280,3 +322,8 @@ def test_rollout_matches_live_jax(case):
         jc, js = jstep(jc, jnp.float32(t), jnp.asarray(targets))
         tc, ts = tstep(tc, torch.tensor(t), torch.tensor(targets))
         _check_tick(k, jc, js, tc, ts)
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    _record_linearize()

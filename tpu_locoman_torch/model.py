@@ -91,6 +91,9 @@ class RobotModel:
         ``dof_link`` (nv,) int64, ``DM`` = ``anc[dof_link]`` (nv, nv) and
         the spatial gravity acceleration ``g_spatial`` (6,)."""
         device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            # one entry for "cuda" and the "cuda:N" its tensors report
+            device = torch.device("cuda", torch.cuda.current_device())
         cache = self.__dict__.setdefault("_tensor_cache", {})
         key = str(device)
         if key not in cache:

@@ -20,8 +20,12 @@ intermediate stays in shared memory; one CTA per element, of two warps at
 large B and of eight at small B (``lanes_per_element``). See the source
 note in ``csrc/rnea_derivs.cu``.
 
-``derivative_pass`` is the kernel's wrapper: it takes the plain version
-only for CPU tensors; on a CUDA tensor it launches the kernel or raises.
+``derivative_pass`` is the kernel's wrapper. It calls the custom op
+``tpu_locoman_torch::rnea_derivs`` on both devices, with the packed tree
+table as a tensor argument and its sizes as ints, so that an exported
+program (``aot.py``) holds the pass as one node: the op's CPU
+implementation is the plain version (the tree's index constants rebuilt
+from the table), its CUDA implementation launches the kernel or raises.
 ``rnea_derivatives`` is the forward pass followed by ``derivative_pass``.
 """
 
@@ -78,7 +82,17 @@ def derivative_pass_plain(model, fq, v, a, ee_frames=(), forces_world=None):
     world-frame derivation of ``rbda.rnea_derivatives`` as masked einsums,
     from the forward quantities ``fq``."""
     T = model.tensors(v.device)
-    anc, dof_link, DM = T["anc"], T["dof_link"], T["DM"]
+    with_f = forces_world is not None and len(ee_frames) > 0
+    ee_joint = ([model.frames[fn].parent_joint for fn in ee_frames]
+                if with_f else [])
+    return _pass_plain(T["anc"], T["dof_link"], T["DM"], ee_joint, fq, v, a,
+                       forces_world if with_f else None)
+
+
+def _pass_plain(anc, dof_link, DM, ee_joint, fq, v, a, forces_world):
+    """The plain pass on the tree's index constants: ``anc`` (n, nv),
+    ``dof_link`` (nv,), ``DM`` = anc[dof_link] and the force frames'
+    joints ``ee_joint``."""
     AL = anc[None, :, :, None]  # (1, n, nv, 1)
     Sw, Iw, Vl, A = fq["Sw"], fq["Iw"], fq["Vl"], fq["A"]
     Iv, IA, f, sdot = fq["Iv"], fq["IA"], fq["f"], fq["sdot"]
@@ -120,11 +134,10 @@ def derivative_pass_plain(model, fq, v, a, ee_frames=(), forces_world=None):
             + motion_cross_star(Vl[:, :, None], dIv))
 
     dtau_df = None
-    if forces_world is not None and len(ee_frames) > 0:
+    if forces_world is not None and len(ee_joint) > 0:
         f = f.clone()
         cols = []
-        for idx, fname in enumerate(ee_frames):
-            jid = model.frames[fname].parent_joint
+        for idx, jid in enumerate(ee_joint):
             fw = forces_world[:, 3 * idx:3 * idx + 3]
             p_f = fq["pf"][:, idx]
             f[:, jid] = f[:, jid] - torch.cat([fw, cross(p_f, fw)], -1)
@@ -309,25 +322,50 @@ def _check(x, shape, name):
         raise ValueError(f"{name}: shape {tuple(x.shape)} != {tuple(shape)}")
 
 
-def _launch(model, fq, v, a, ee_frames, forces_world):
+_FQ = ("Sw", "Iw", "sdot", "Vl", "A", "Iv", "IA", "f", "pf")
+
+
+def _table_constants(topo, n, nv, nfr, dtype):
+    """(anc, dof_link, DM, ee_joint) read back from the packed table's
+    head (lo, hi, dof_link, the force frames' joints): dof j moves link i
+    when i lies in the subtree [lo, hi) of the link that carries j."""
+    head = topo[:2 * n + nv + nfr].long()
+    lo, hi, dof_link = head[:n], head[n:2 * n], head[2 * n:2 * n + nv]
+    links = torch.arange(n, device=topo.device)[:, None]
+    anc = ((links >= lo[dof_link]) & (links < hi[dof_link])).to(dtype)
+    return anc, dof_link, anc[dof_link], head[2 * n + nv:].tolist()
+
+
+@torch.library.custom_op("tpu_locoman_torch::rnea_derivs", mutates_args=(),
+                         device_types="cpu")
+def _op(topo: torch.Tensor, Sw: torch.Tensor, Iw: torch.Tensor,
+        sdot: torch.Tensor, Vl: torch.Tensor, A: torch.Tensor,
+        Iv: torch.Tensor, IA: torch.Tensor, f: torch.Tensor, pf: torch.Tensor,
+        v: torch.Tensor, a: torch.Tensor, fw: torch.Tensor, n: int, nv: int,
+        nfr: int, n_pairs: int, n_wpairs: int, n_outs: int
+        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    anc, dof_link, DM, ee_joint = _table_constants(topo, n, nv, nfr, v.dtype)
+    fq = dict(zip(_FQ, (Sw, Iw, sdot, Vl, A, Iv, IA, f, pf)))
+    outs = _pass_plain(anc, dof_link, DM, ee_joint, fq, v, a,
+                       fw if nfr else None)
+    df = outs[3] if nfr else v.new_zeros(v.shape[0], nv, 1)
+    return outs[0], outs[1], outs[2], df
+
+
+@_op.register_kernel("cuda")
+def _launch(topo, Sw, Iw, sdot, Vl, A, Iv, IA, f, pf, v, a, fw, n, nv, nfr,
+            n_pairs, n_wpairs, n_outs):
     from ._build import load
 
     global launches
-    B, nv, n = v.shape[0], model.nv, model.n_links
-    nfr = len(ee_frames)
-    tab, topo = _topology(model, ee_frames, v.device)
-    ins = {k: fq[k].contiguous() for k in ("Sw", "Iw", "sdot", "Vl", "A",
-                                           "Iv", "IA", "f", "pf")}
-    v, a = v.contiguous(), a.contiguous()
-    fw = (forces_world.contiguous() if nfr else v.new_zeros(B, 0))
+    B = v.shape[0]
     shapes = {"Sw": (B, nv, 6), "Iw": (B, n, 6, 6), "sdot": (B, nv, 6),
               "Vl": (B, n, 6), "A": (B, n, 6), "Iv": (B, n, 6),
-              "IA": (B, n, 6), "f": (B, n, 6), "pf": (B, nfr, 3)}
-    for k, shp in shapes.items():
-        _check(ins[k], shp, k)
-    _check(v, (B, nv), "v")
-    _check(a, (B, nv), "a")
-    _check(fw, (B, 3 * nfr), "forces_world")
+              "IA": (B, n, 6), "f": (B, n, 6), "pf": (B, nfr, 3),
+              "v": (B, nv), "a": (B, nv), "forces_world": (B, 3 * nfr)}
+    ins = (Sw, Iw, sdot, Vl, A, Iv, IA, f, pf, v, a, fw)
+    for x, (name, shp) in zip(ins, shapes.items()):
+        _check(x, shp, name)
     dq = torch.empty(B, nv, nv, dtype=torch.float32, device=v.device)
     dv = torch.empty_like(dq)
     da = torch.empty_like(dq)
@@ -336,26 +374,42 @@ def _launch(model, fq, v, a, ee_frames, forces_world):
     p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     stream = torch.cuda.current_stream(v.device).cuda_stream
     rc = load().rnea_derivs_launch(
-        p(topo), p(ins["Sw"]), p(ins["Iw"]), p(v), p(a), p(ins["sdot"]),
-        p(ins["Vl"]), p(ins["A"]), p(ins["Iv"]), p(ins["IA"]), p(ins["f"]),
-        p(ins["pf"]), p(fw), p(dq), p(dv), p(da), p(df),
+        p(topo), p(Sw), p(Iw), p(v), p(a), p(sdot), p(Vl), p(A), p(Iv),
+        p(IA), p(f), p(pf), p(fw), p(dq), p(dv), p(da), p(df),
         *(ctypes.c_int(x) for x in (
-            B, n, nv, nfr, len(tab.pairs), len(tab.wpairs), len(tab.outs),
+            B, n, nv, nfr, n_pairs, n_wpairs, n_outs,
             lanes_per_element(B, v.device))),
         ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"rnea_derivs kernel launch failed: CUDA error {rc}")
     launches += 1
-    return (dq, dv, da, df) if nfr else (dq, dv, da)
+    return dq, dv, da, df
+
+
+@_op.register_fake
+def _(topo, Sw, Iw, sdot, Vl, A, Iv, IA, f, pf, v, a, fw, n, nv, nfr,
+      n_pairs, n_wpairs, n_outs):
+    B = v.shape[0]
+    dq = v.new_empty(B, nv, nv)
+    return dq, torch.empty_like(dq), torch.empty_like(dq), v.new_empty(
+        B, nv, max(3 * nfr, 1))
 
 
 def derivative_pass(model, fq, v, a, ee_frames=(), forces_world=None):
     """The kernel's wrapper: the derivative pass from the forward
-    quantities ``fq``. CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
-    if not v.is_cuda:
+    quantities ``fq``, through the op (CPU tensors take the plain version;
+    CUDA tensors launch the kernel). A CPU tensor inside a ``torch.func``
+    transform takes the plain version directly."""
+    if not v.is_cuda and torch._C._functorch.is_functorch_wrapped_tensor(v):
         return derivative_pass_plain(model, fq, v, a, ee_frames, forces_world)
-    return _launch(model, fq, v, a, ee_frames, forces_world)
+    B, nfr = v.shape[0], len(ee_frames)
+    tab, topo = _topology(model, ee_frames, v.device)
+    fw = forces_world.contiguous() if nfr else v.new_zeros(B, 0)
+    out = torch.ops.tpu_locoman_torch.rnea_derivs(
+        topo, *(fq[k].contiguous() for k in _FQ), v.contiguous(),
+        a.contiguous(), fw, model.n_links, model.nv, nfr, len(tab.pairs),
+        len(tab.wpairs), len(tab.outs))
+    return out if nfr else out[:3]
 
 
 def rnea_derivatives(model, q, v, a, ee_frames=(), forces_world=None):

@@ -13,11 +13,13 @@ and ~70 small torch operations per node at s = 105.
 What bounds it on an H100: bytes, 2 s^2 floats moved per block against
 ~2 s^3 / 3 operations (see the kernel's source note).
 
-``chol_inv_node`` takes the plain version only for CPU tensors; on a CUDA
-tensor it launches the kernel or raises. The plain version is the
-recursion with its plain leaves, ``qp.chol_inv(S, 16, "torch")``; its
-leaves (``chol_base_unrolled``, ``tri_inv_doubling``) are ports of the TPU
-kernel's algorithm and stay the CPU path of ``base_impl="kernel"``.
+``chol_inv_node`` calls the custom op ``tpu_locoman_torch::chol_inv_node``
+on both devices, so that an exported program (``aot.py``) holds it as one
+node: its CPU implementation is the plain version, its CUDA implementation
+launches the kernel or raises. The plain version is the recursion with its
+plain leaves, ``qp.chol_inv(S, base, "torch")``; its leaves
+(``chol_base_unrolled``, ``tri_inv_doubling``) are ports of the TPU
+kernel's algorithm.
 """
 
 import ctypes
@@ -73,12 +75,13 @@ def chol_inv_base_plain(S):
     return tri_inv_doubling(L, dinv)
 
 
-def chol_inv_node_plain(S):
+def chol_inv_node_plain(S, base=16):
     """Plain PyTorch version of the kernel: the recursive 2x2 block
-    Cholesky with plain leaves (s <= 16), the kernel's split points."""
+    Cholesky with plain leaves (s <= base; the kernel's split points at
+    the default 16)."""
     from .qp import chol_inv
 
-    return chol_inv(S, 16, "torch")[1]
+    return chol_inv(S, base, "torch")[1]
 
 
 def _check(S):
@@ -91,11 +94,15 @@ def _check(S):
                          f"with 1 <= s <= {MAX_S}, got {tuple(S.shape)}")
 
 
-def chol_inv_node(S):
-    """L^-1 of a (..., s, s) batch of SPD blocks, s <= MAX_S."""
+@torch.library.custom_op("tpu_locoman_torch::chol_inv_node", mutates_args=(),
+                         device_types="cpu")
+def _op(S: torch.Tensor, base: int) -> torch.Tensor:
+    return chol_inv_node_plain(S, base)
+
+
+@_op.register_kernel("cuda")
+def _launch(S, base):
     global launches
-    if not S.is_cuda:
-        return chol_inv_node_plain(S)
     from .._build import load
 
     _check(S)
@@ -111,3 +118,18 @@ def chol_inv_node(S):
                            f"{rc}")
     launches += 1
     return out.reshape(lead + (s, s))
+
+
+@_op.register_fake
+def _(S, base):
+    return torch.empty_like(S)
+
+
+def chol_inv_node(S, base=16):
+    """L^-1 of a (..., s, s) batch of SPD blocks, s <= MAX_S on the card
+    (where ``base`` does not shape the factor: the kernel keeps its own
+    split points). A CPU tensor inside a ``torch.func`` transform takes the
+    plain version directly, which the transform can see through."""
+    if not S.is_cuda and torch._C._functorch.is_functorch_wrapped_tensor(S):
+        return chol_inv_node_plain(S, base)
+    return torch.ops.tpu_locoman_torch.chol_inv_node(S, base)

@@ -26,8 +26,10 @@ the 2x2 block recursion it shares with K1 (``csrc/chol_tile.cuh``): about
 of panel steps; at batch 512 the CTAs fill the card in four waves.
 Splitting a scenario over a cluster of CTAs is later work.
 
-``factorize_whole`` takes the plain version only for CPU tensors; on a CUDA
-tensor it launches the kernel or raises.
+``factorize_whole`` calls the custom op ``tpu_locoman_torch::fac_whole`` on
+both devices, so that an exported program (``aot.py``) holds it as one
+node: its CPU implementation is the plain version, its CUDA implementation
+launches the kernel or raises.
 """
 
 import ctypes
@@ -67,13 +69,17 @@ def _check(H, U):
         raise ValueError("factorize_whole: H and U must be on one device")
 
 
-def factorize_whole(H, U):
-    """BlockTridiagFactor of H (Bs, K, s, s) and U (Bs, K-1, s, s)."""
+@torch.library.custom_op("tpu_locoman_torch::fac_whole", mutates_args=(),
+                         device_types="cpu")
+def _op(H: torch.Tensor, U: torch.Tensor
+        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return tuple(factorize_whole_plain(H, U))
+
+
+@_op.register_kernel("cuda")
+def _launch(H, U):
     global launches
-    if not H.is_cuda:
-        return factorize_whole_plain(H, U)
     from .._build import load
-    from .qp import BlockTridiagFactor
 
     _check(H, U)
     Bs, K, s = H.shape[0], H.shape[1], H.shape[-1]
@@ -88,4 +94,16 @@ def factorize_whole(H, U):
         raise RuntimeError(f"factorize_whole kernel launch failed: CUDA error "
                            f"{rc}")
     launches += 1
-    return BlockTridiagFactor(Linv=Linv, W=W, V=V)
+    return Linv, W, V
+
+
+@_op.register_fake
+def _(H, U):
+    return tuple(torch.empty_like(H) for _ in range(3))
+
+
+def factorize_whole(H, U):
+    """BlockTridiagFactor of H (Bs, K, s, s) and U (Bs, K-1, s, s)."""
+    from .qp import BlockTridiagFactor
+
+    return BlockTridiagFactor(*torch.ops.tpu_locoman_torch.fac_whole(H, U))

@@ -177,16 +177,16 @@ def kernel_blocks(s):
 def chol_inv(S, base=16, base_impl="torch"):
     """(L, Linv) of SPD blocks (..., s, s) by recursive 2x2 block Cholesky.
 
-    base_impl="kernel" materializes only Linv (L is None). On a CUDA
-    tensor it hands every block of width <= MAX_S (112) whole to one K1
-    launch (``chol_inv_node``), recursing only above that
-    (``kernel_blocks``), so ``base`` (``ADMMConfig.chol_base``) does not
+    base_impl="kernel" materializes only Linv (L is None). It hands every
+    block of width <= MAX_S (112) whole to the K1 op (``chol_inv_node``),
+    recursing only above that (``kernel_blocks``). On a CUDA tensor that
+    is one K1 launch, so ``base`` (``ADMMConfig.chol_base``) does not
     shape the factorization there: the factor is the same up to f32
-    roundoff. On a CPU tensor it recurses to leaves s <= base and computes
-    them in plain torch, as base_impl="torch" does."""
+    roundoff. On a CPU tensor the op recurses to leaves s <= base and
+    computes them in plain torch, as base_impl="torch" does."""
     s = S.shape[-1]
-    if base_impl == "kernel" and S.is_cuda and s <= MAX_S:
-        return None, chol_inv_node(S)
+    if base_impl == "kernel" and s <= MAX_S:
+        return None, chol_inv_node(S, base)
     if s <= base:
         if base_impl == "kernel":
             return None, chol_inv_base_plain(S)
