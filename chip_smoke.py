@@ -97,10 +97,22 @@ Phases, one line each (any failure raises; exit code non-zero):
     against the same scene computed on the CPU;
 30. the run_ocp example --debug at its defaults, and native.pack_params of
     its state;
-31. one JSON line with each kernel's error, times, bound and launch counts
+31. the reference-style factory: the flagship built by make_ocp on the
+    default device against MPC(...) built directly, 3 ticks at batch 512
+    from the same carry (gap held at 0; K1 15 and K2 1 per tick), and the
+    four other formulations through make_ocp with OCP_ARGS (class,
+    arguments, sizes s and m against MPC's; 1 tick at batch 8 each);
+32. the flagship with nonzero ext_force_des and arm_vel_des, batch 512, 3
+    ticks, beside phase 31's zero-target ticks, gated at JAX's survey, and
+    the replay of its JAX fixture tests/data/torch_golden_b2g_n14_targets
+    .json;
+33. get_bezier_vel_z, CubicSpline, so3_exp_matrix / so3_log_matrix and
+    frame_velocity_lwa (feet and gripper) on the card against the CPU at
+    the flagship's flat batch (512 x 14);
+34. one JSON line with each kernel's error, times, bound and launch counts
     (per path under "path_launches").
 The bounds of 17, 18 and 21 are SPREAD_FACTOR times JAX against itself,
-and the gates of 19 and 20 JAX's own violation widened by that (see
+and the gates of 19, 20 and 32 JAX's own violation widened by that (see
 survey_gate), each read from the files tools/make_torch_golden.py writes.
 Kernel times come in two kinds: device ms, the device's time for one
 call from a CUDA-graph replay of 20 calls (what ranks and bounds a
@@ -168,6 +180,19 @@ GOLDEN_SCALED = os.path.join(ROOT, "tests", "data",
                              "torch_golden_b2g_n14_scaled.json")
 GOLDEN_B2 = os.path.join(ROOT, "tests", "data",
                          "torch_golden_b2_front_n14.json")
+GOLDEN_TARGETS = os.path.join(ROOT, "tests", "data",
+                              "torch_golden_b2g_n14_targets.json")
+# the targets phase: ext_force_des and arm_vel_des, those of its fixture
+EXT_FORCE_DES = (0.0, 0.0, -20.0)
+ARM_VEL_DES = (0.1, 0.0, 0.05)
+# the new functions on the card against their CPU evaluation: f32 roundoff
+# of the device's sin, cos and fused multiply-adds, relative to max|ref| + 1
+SURFACE_TOL = 1e-5
+# so3_log_matrix near theta = pi - 0.1 (the reference's formula: theta /
+# (2 sin theta) and acos, conditioned ~1/sin^2 theta, ~100 there): one ulp
+# of acos or sin moves it ~1e-5, so it is held at the round-trip bound of
+# tests/test_lie.py, absolute
+SO3_LOG_TOL = 2e-4
 # the formulation variants' B2G N=14 fixtures (tools/make_torch_golden.py
 # --case NAME), by case
 VARIANT_FIXTURES = {name: os.path.join(ROOT, "tests", "data",
@@ -293,7 +318,15 @@ def hot_mpc(T, device, factorizer, nodes=14, ship=None,
     ship = ship or {}
     robot = getattr(T, robot[0])(**robot[1])
     robot.set_gait_sequence("trot", 0.8)
-    cfg = T.SQPConfig(
+    return T.MPC(robot, dynamics=dynamics, nodes=nodes,
+                 flip_reset=True, warm_shift=bool(ship.get("warm_shift", True)),
+                 config=hot_config(T, factorizer, ship), device=device,
+                 **(form_kwargs or {}))
+
+
+def hot_config(T, factorizer, ship):
+    """The SQPConfig of a SHIPPING.json-style dict (see hot_mpc)."""
+    return T.SQPConfig(
         sqp_iters=int(ship.get("sqp_iters", 1)),
         n_trials=int(ship.get("ls_trials", 2)),
         corrector_iters=int(ship.get("corrector", 5)),
@@ -301,9 +334,6 @@ def hot_mpc(T, device, factorizer, nodes=14, ship=None,
         admm=T.ADMMConfig(iters=int(ship.get("admm_iters", 10)),
                           scaling_iters=int(ship.get("scaling_iters", 0)),
                           factorizer=factorizer))
-    return T.MPC(robot, dynamics=dynamics, nodes=nodes,
-                 flip_reset=True, warm_shift=bool(ship.get("warm_shift", True)),
-                 config=cfg, device=device, **(form_kwargs or {}))
 
 
 def k2_samples(np, robot, B, seed):
@@ -612,6 +642,222 @@ def phase_ocp_native(dev):
             f"{os.path.relpath(native.library_path(), ROOT)})")
 
 
+def phase_make_ocp(dev, ship, batch=512, ticks=3):
+    """31: the reference-style factory. The flagship built by
+    ``make_ocp("whole_body_rnea", robot=B2G, nodes=14, config=...)`` on the
+    default device (the card) against the MPC built directly (hot_mpc):
+    ``ticks`` ticks each at batch ``batch`` from batched_init, target vx
+    0.2, the largest gap in x, Z and max_violation (the same construction,
+    device and launch order: held at 0), K1 15 and K2 1 launches per tick
+    of the make_ocp run. Then each other formulation through make_ocp with
+    its OCP_ARGS: its class, arguments and transcription sizes (s, m)
+    against the MPC built directly, and one tick at batch 8 with its
+    launches."""
+    import torch
+
+    import tpu_locoman_torch as T
+
+    cfg = hot_config(T, ship["factorizer"], ship)
+    target = torch.tensor([0.2, 0, 0, 0, 0, 0], device=dev).repeat(batch, 1)
+    direct = hot_mpc(T, dev, ship["factorizer"], ship=ship)
+    d = run_ticks(T.batched_step(direct), T.batched_init(direct, batch),
+                  target, direct.dt_min, 0, ticks)
+    robot = T.B2G()
+    robot.set_gait_sequence("trot", 0.8)
+    mpc = T.make_ocp("whole_body_rnea", robot=robot, nodes=14, config=cfg,
+                     warm_shift=bool(ship.get("warm_shift", True)))
+    check(mpc.device.type == "cuda", "make_ocp did not default to the card")
+    reset_launches()
+    o = run_ticks(T.batched_step(mpc), T.batched_init(mpc, batch), target,
+                  mpc.dt_min, 0, ticks)
+    launches = read_launches()
+    check(launches == (15 * ticks, ticks, 0),
+          f"make_ocp flagship launches {launches}")
+    # |direct - make_ocp| in x and Z after the ticks, and in the batch-mean
+    # max_violation of the worst and the mean tick
+    gap = [float((d["carry"].x_init - o["carry"].x_init).abs().max()),
+           float((d["carry"].solver_state.Z
+                  - o["carry"].solver_state.Z).abs().max()),
+           max(abs(d[k] - o[k]) for k in ("viol_mean", "viol_worst"))]
+    check(max(gap) == 0.0, f"make_ocp against MPC: x, Z, violation gaps {gap}")
+    check(o["viol_mean"] <= VIOL_GATE,
+          f"make_ocp violation mean {o['viol_mean']}")
+    d_ms = d["tick_ms"]
+    del d, direct
+    others = []
+    tg8 = torch.zeros(8, 6, device=dev)
+    tg8[:, 0] = torch.linspace(0.0, 0.3, 8, device=dev)
+    # per tick (K1, K2) launches of each formulation at batch 8 (phase 16)
+    expect = {"whole_body_aba": (18, 1), "whole_body_acc": (15, 1),
+              "centroidal_acc": (15, 0), "centroidal_vel": (15, 0)}
+    for name, per_tick in expect.items():
+        m = T.make_ocp(name, robot=robot, nodes=14, config=cfg)
+        ref = T.MPC(robot, dynamics=name, nodes=14, config=cfg, device=dev)
+        check(type(m.form) is type(ref.form) is T.FORMULATIONS[name],
+              f"make_ocp {name}: {type(m.form).__name__}")
+        for k in T.OCP_ARGS[name]:
+            check(getattr(m.form, k) == getattr(ref.form, k),
+                  f"make_ocp {name}: {k}")
+        check((m.trans.s, m.trans.m) == (ref.trans.s, ref.trans.m),
+              f"make_ocp {name}: sizes {(m.trans.s, m.trans.m)}")
+        reset_launches()
+        r = run_ticks(m.step, m.init_carry(8), tg8, m.dt_min, 0, 1)
+        got = read_launches()[:2]
+        check(got == per_tick, f"make_ocp {name} launches K1, K2 = {got}")
+        if name == "whole_body_aba":
+            k1_b8 = k1_at_mass_matrix(dev, robot, 8 * 14, seed=31)
+        others.append(f"{name} {type(m.form).__name__}("
+                      + ", ".join(f"{k}={getattr(m.form, k)}"
+                                  for k in T.OCP_ARGS[name])
+                      + f") s={m.trans.s} m={m.trans.m} violation "
+                      f"{r['viol_mean']:.4f} status {r['status']} launches "
+                      f"K1 {got[0]} K2 {got[1]}")
+        del m, ref, r
+    return o["tick_ms"], launches, k1_b8, (
+        f"[31 make_ocp] make_ocp(\"whole_body_rnea\", robot=B2G, nodes=14, "
+        f"config=bench_defaults) on {mpc.device}, batch {batch}, {ticks} "
+        f"ticks against MPC(...) from the same carry: gap x {gap[0]:.3g}, Z "
+        f"{gap[1]:.3g}, max_violation {gap[2]:.3g} (held at 0); ms/tick "
+        f"make_ocp {', '.join(f'{x:.2f}' for x in o['tick_ms'])}, direct "
+        f"{', '.join(f'{x:.2f}' for x in d_ms)}; max_violation mean "
+        f"{o['viol_mean']:.6g} (gate {VIOL_GATE}); launches K1 {launches[0]} "
+        f"K2 {launches[1]} K3 {launches[2]} over {ticks} ticks; with OCP_ARGS, "
+        f"batch 8, 1 tick each (class, arguments and s, m equal to MPC's): "
+        + "; ".join(others) + f"; K1 at whole_body_aba's batch-8 mass "
+        f"matrices ({k1_b8['B']}, {k1_b8['s']}): max abs err "
+        f"{k1_b8['max_abs_err']:.3g}, device ms / call ms kernel "
+        f"{k1_b8['kernel'][0]:.4f} / {k1_b8['kernel'][1]:.4f}, plain "
+        f"{k1_b8['plain'][0]:.4f} / {k1_b8['plain'][1]:.4f}, cholesky_ex + "
+        f"solve_triangular {k1_b8['library'][0]:.4f} / "
+        f"{k1_b8['library'][1]:.4f}, bound {k1_b8['bound'][0]:.6f} "
+        f"({k1_b8['bound'][1]})")
+
+
+def k1_at_mass_matrix(dev, robot, E, seed):
+    """K1 against its plain version and its times at the mass matrices of
+    E seeded nodes of ``robot``: whole_body_aba's shape at a flat batch of
+    E nodes (phases 13 and 31)."""
+    import numpy as np
+    import torch
+
+    from tpu_locoman_torch import rbda
+    from tpu_locoman_torch.solver import chol_base
+
+    q, _, _, _ = k2_samples(np, robot, E, seed=seed)
+    nv = robot.model.nv
+    M = rbda.crba(robot.model, torch.tensor(q, device=dev)) + 1e-6 * torch.eye(
+        nv, device=dev)
+    out, ref = chol_base.chol_inv_node(M), chol_base.chol_inv_node_plain(M)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    check(err <= K1_TOL * (float(ref.abs().max()) + 1.0),
+          f"K1 at ({E}, {nv}): {err}")
+    eye = torch.eye(nv, device=dev).expand(E, nv, nv)
+    return {"B": E, "s": nv, "max_abs_err": err,
+            "kernel": times(torch, lambda: chol_base.chol_inv_node(M)),
+            "plain": times(torch, lambda: chol_base.chol_inv_node_plain(M),
+                           10),
+            "library": times(torch, lambda: torch.linalg.solve_triangular(
+                torch.linalg.cholesky_ex(M).L, eye, upper=False)),
+            "bound": bound(2 * M.numel() * 4, E * 2 * nv ** 3 / 3)}
+
+
+def phase_targets(dev, ship, spreads, flat_ms, batch=512, ticks=3):
+    """32: nonzero force and arm targets on the flagship: ext_force_des
+    EXT_FORCE_DES and arm_vel_des ARM_VEL_DES for every scenario, batch
+    ``batch``, ``ticks`` ticks from batched_init, beside the zero-target
+    ticks of phase 31 (``flat_ms``); max_violation within survey_gate of
+    JAX's survey of the configuration (at most the shipping gate), then
+    its JAX fixture (batch 2) replayed."""
+    import numpy as np
+    import torch
+
+    import tpu_locoman_torch as T
+
+    mpc = hot_mpc(T, dev, ship["factorizer"], ship=ship)
+    ext, arm = (torch.tensor(x, device=dev) for x in (EXT_FORCE_DES,
+                                                      ARM_VEL_DES))
+    target = torch.tensor([0.2, 0, 0, 0, 0, 0], device=dev).repeat(batch, 1)
+    reset_launches()
+    r = run_ticks(lambda c, t, tg: mpc.step(c, t, tg, ext, arm),
+                  T.batched_init(mpc, batch), target, mpc.dt_min, 0, ticks)
+    launches = read_launches()
+    check(launches == (15 * ticks, ticks, 0), f"targets launches {launches}")
+    sv = spreads["survey_targets"]
+    gate, rel = survey_gate(sv, GOLDEN_TARGETS)
+    check(r["viol_mean"] <= gate,
+          f"targets violation mean {r['viol_mean']} > {gate}")
+    ms = float(np.mean(r["tick_ms"]))
+    return r, launches, (
+        f"[32 targets] B2G whole_body_rnea N=14 batch {batch}, bench_defaults"
+        f", ext_force_des {EXT_FORCE_DES} arm_vel_des {ARM_VEL_DES}: "
+        f"{path_line(r, batch, launches, ticks)} ({gate_text(gate, rel, sv)}"
+        f"); {ms:.2f} ms/tick against {float(np.mean(flat_ms)):.2f} with zero "
+        f"targets (phase 31, {ms / float(np.mean(flat_ms)):.3f}x); "
+        + replay_text(dev, "cholinv_pb", GOLDEN_TARGETS))
+
+
+def phase_surface(dev, E=512 * 14):
+    """33: the functions ported last on CUDA tensors against their CPU
+    evaluation, at the flagship's flat batch of nodes: get_bezier_vel_z,
+    CubicSpline, so3_exp_matrix / so3_log_matrix, and frame_velocity_lwa
+    for the four feet and the gripper. Returns the line."""
+    import numpy as np
+    import torch
+
+    import tpu_locoman_torch as T
+    from tpu_locoman_torch import gait, lie, rbda
+
+    rng = np.random.default_rng(33)
+
+    def f32(*shape, lo=0.0, hi=1.0):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    phase, period, h = f32(E), f32(E, lo=0.2, hi=0.6), f32(E, lo=0.05,
+                                                           hi=0.15)
+    bc, t = rng.standard_normal((4, E)).astype(np.float32), f32(E, lo=0.1,
+                                                                hi=0.45)
+    axis = rng.standard_normal((E, 3))
+    w = (axis / np.linalg.norm(axis, axis=1, keepdims=True)
+         * f32(E, hi=np.pi - 0.1)[:, None]).astype(np.float32)
+    R = lie.so3_exp_matrix(torch.tensor(w)).numpy()
+    robot = T.B2G()
+    q, v, _, _ = k2_samples(np, robot, E, seed=34)
+    frames = tuple(robot.FOOT_FRAMES) + (robot.arm_ee_frame,)
+
+    def evaluate(d):
+        on = (lambda x: torch.tensor(x, device=d))  # noqa: E731
+        sp = gait.CubicSpline(0.1, 0.45, *(on(b) for b in bc))
+        out = {"get_bezier_vel_z": gait.get_bezier_vel_z(
+                   on(phase), on(period), on(h)),
+               "CubicSpline.position": sp.position(on(t)),
+               "CubicSpline.velocity": sp.velocity(on(t)),
+               "so3_exp_matrix": lie.so3_exp_matrix(on(w)),
+               "so3_log_matrix": lie.so3_log_matrix(on(R))}
+        for f in frames:
+            out[f"frame_velocity_lwa {f}"] = rbda.frame_velocity_lwa(
+                robot.model, f, on(q), on(v))
+        return {k: x.cpu() for k, x in out.items()}
+
+    gpu, cpu = evaluate(dev), evaluate(torch.device("cpu"))
+    errs = {}
+    for k, ref in cpu.items():
+        e = float((gpu[k] - ref).abs().max())
+        tol = (SO3_LOG_TOL if k == "so3_log_matrix"
+               else SURFACE_TOL * (float(ref.abs().max()) + 1.0))
+        check(e <= tol, f"{k} on the card: {e} > {tol}")
+        errs[k] = e
+    wd = torch.tensor(w, device=dev)
+    trip = float((lie.so3_log_matrix(lie.so3_exp_matrix(wd)) - wd).abs().max())
+    check(trip <= SO3_LOG_TOL, f"so3 round trip on the card: {trip}")
+    return (f"[33 surface] on the card against the CPU, the same inputs at {E}"
+            f" points, max abs err (tol {SURFACE_TOL} x (max|ref| + 1); "
+            f"so3_log_matrix {SO3_LOG_TOL}): "
+            + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+            + f"; so3_log_matrix(so3_exp_matrix(w)) - w on the card {trip:.3g}"
+            f" (tol {SO3_LOG_TOL}, theta up to pi - 0.1)")
+
+
 def run_ticks(step, carry, target, dt, warm, timed):
     """Tick with step(carry, t, target) from carry, each tick bracketed by a
     device synchronize; every output must be finite."""
@@ -791,10 +1037,13 @@ def replay_golden(dev, factorizer, path=GOLDEN):
         form_kwargs=s.get("form_kwargs"))
     cg = convert.carry_from_numpy(gold["init"], dev)
     tg = torch.tensor(gold["targets"], device=dev)
+    # the force and arm targets of a fixture that sets them (--case targets)
+    extra = [torch.tensor(s[k], device=dev) for k in ("ext_force_des",
+                                                      "arm_vel_des") if k in s]
     gx = gv = 0.0
     vs, refs = [], []
     for k, ref in enumerate(gold["ticks"]):
-        cg, st = mg.step(cg, k * s["dt_min"], tg)
+        cg, st = mg.step(cg, k * s["dt_min"], tg, *extra)
         dx = float(np.abs(cg.x_init.cpu().numpy() - ref["x"]).max())
         v = st["max_violation"].cpu().numpy()
         rv = ref["max_violation"]
@@ -1419,7 +1668,7 @@ def main():
 
 
 def run(args, stack):
-    """Phases 1-31; ``stack`` ends the export workers and their files."""
+    """Phases 1-34; ``stack`` ends the export workers and their files."""
     import numpy as np
     import torch
 
@@ -1805,45 +2054,17 @@ def run(args, stack):
     id_err = float((out[0] - at).abs().max()) / (float(at.abs().max()) + 1.0)
     check(id_err <= ABA_ID_TOL, f"aba(rnea(a)) - a: normalized {id_err}")
     nv = m.nv
-    Mm = rbda.crba(m, qt) + 1e-6 * torch.eye(nv, device=dev)
-    o1, r1 = chol_base.chol_inv_node(Mm), chol_base.chol_inv_node_plain(Mm)
-    torch.cuda.synchronize()
-    k1_aba_err = float((o1 - r1).abs().max())
-    check(k1_aba_err <= K1_TOL * (float(r1.abs().max()) + 1.0),
-          f"K1 at ({E}, {nv}): {k1_aba_err}")
-    eye = torch.eye(nv, device=dev).expand(E, nv, nv)
-    k1_aba = {"B": E, "s": nv,
-              "kernel": times(torch, lambda: chol_base.chol_inv_node(Mm)),
-              "plain": times(torch,
-                             lambda: chol_base.chol_inv_node_plain(Mm), 10),
-              "library": times(torch, lambda: torch.linalg.solve_triangular(
-                  torch.linalg.cholesky_ex(Mm).L, eye, upper=False)),
-              "bound": bound(2 * Mm.numel() * 4, E * 2 * nv ** 3 / 3)}
-    # the line search's mass matrices: both trials of every node in one
-    # launch, at twice the flat batch
-    q2, _, _, _ = k2_samples(np, rob, 2 * E, seed=14)
-    M2 = rbda.crba(m, torch.tensor(q2, device=dev)) + 1e-6 * torch.eye(
-        nv, device=dev)
-    o2, r2_ = chol_base.chol_inv_node(M2), chol_base.chol_inv_node_plain(M2)
-    torch.cuda.synchronize()
-    k1_aba2_err = float((o2 - r2_).abs().max())
-    check(k1_aba2_err <= K1_TOL * (float(r2_.abs().max()) + 1.0),
-          f"K1 at ({2 * E}, {nv}): {k1_aba2_err}")
-    eye2 = torch.eye(nv, device=dev).expand(2 * E, nv, nv)
-    k1_aba2 = {"B": 2 * E, "s": nv,
-               "kernel": times(torch, lambda: chol_base.chol_inv_node(M2)),
-               "plain": times(torch,
-                              lambda: chol_base.chol_inv_node_plain(M2), 10),
-               "library": times(torch, lambda: torch.linalg.solve_triangular(
-                   torch.linalg.cholesky_ex(M2).L, eye2, upper=False)),
-               "bound": bound(2 * M2.numel() * 4, 2 * E * 2 * nv ** 3 / 3)}
-    del M2, o2, r2_, eye2
+    # the mass matrices of the nodes above, and the line search's: both
+    # trials of every node in one launch, at twice the flat batch
+    k1_aba = k1_at_mass_matrix(dev, rob, E, seed=13)
+    k1_aba2 = k1_at_mass_matrix(dev, rob, 2 * E, seed=14)
+    k1_aba_err, k1_aba2_err = k1_aba["max_abs_err"], k1_aba2["max_abs_err"]
     aba_call = median_ms(torch, lambda: rbda.aba_derivatives(
         m, qt, vt, tau, ee, ft), reps=10)
     with plain_kernels():
         aba_plain_call = median_ms(torch, lambda: rbda.aba_derivatives(
             m, qt, vt, tau, ee, ft), reps=5)
-    del out, ref, Mm, o1, r1
+    del out, ref
     plog(f"[13 aba_derivatives] B2G E={E} with forces, kernel route (K1 "
         f"{aba_launches[0]}, K2 {aba_launches[1]} launches) == plain route, "
         f"normalized err " + ", ".join(f"{k} {e:.3g}"
@@ -1984,6 +2205,13 @@ def run(args, stack):
     plog(line)
     plog(phase_ocp_native(dev))
 
+    # ---- 31-33. make_ocp, force and arm targets, the last functions --------
+    ocp_ms, ocp_launches, k1_b8, line = phase_make_ocp(dev, ship, batch)
+    plog(line)
+    _, tgt_launches, line = phase_targets(dev, ship, spreads, ocp_ms, batch)
+    plog(line)
+    plog(phase_surface(dev))
+
     for tag, what, path, tick_ms, ticks_of in (profiles if args.profile
                                                 else []):
         dev_ms, n_k, wall = profile_ticks(*ticks_of(), path)
@@ -1992,7 +2220,7 @@ def run(args, stack):
              f"{tick_ms:.2f} without (idle {100 * (1 - dev_ms / tick_ms):.1f}%"
              f" of the unprofiled tick)")
 
-    # ---- 31. kernels ------------------------------------------------------------
+    # ---- 34. kernels ------------------------------------------------------------
     k3_main = next(r for r in k3_rows if (r["K"], r["Bs"]) == (14, 1))
     k2_main = k2_rows["B2G 7168"]
     # (K1, K2, K3) launches of every path's driven run
@@ -2007,7 +2235,8 @@ def run(args, stack):
                  exported["accurate b1"]["launches"]),
              "dryrun_gloo_rank0": tuple(
                  dry["gloo x2 on one card"]["rank0_launches"]),
-             "run_mpc": ex_launches}
+             "run_mpc": ex_launches, "make_ocp": ocp_launches,
+             "targets": tgt_launches}
 
     def per_path(i):
         return {name: n[i] for name, n in paths.items()}
@@ -2059,7 +2288,17 @@ def run(args, stack):
                          "call_ms": k1_81["kernel"][1],
                          "plain_ms": k1_81["plain"][0],
                          "bound_ms": k1_81["bound"][0],
-                         "library_ms": k1_81["library"][0]}}},
+                         "library_ms": k1_81["library"][0]},
+                 "b8": {"ms": k1_b8["kernel"][0],
+                        "call_ms": k1_b8["kernel"][1],
+                        "plain_ms": k1_b8["plain"][0],
+                        "library_ms": k1_b8["library"][0],
+                        "bound_ms": k1_b8["bound"][0],
+                        "bound_by": k1_b8["bound"][1],
+                        "max_abs_err": k1_b8["max_abs_err"],
+                        "shape": [k1_b8["B"], k1_b8["s"]],
+                        "at": "whole_body_aba through make_ocp at batch 8 "
+                              "(phase 31): its mass matrices"}}},
         {"name": "rnea_derivs", "route": "cuda",
          "source": "tpu_locoman_torch/csrc/rnea_derivs.cu",
          "replaces": "tpu_locoman/pallas_rbda.py:227",

@@ -32,6 +32,7 @@ RECORDINGS = {
     "torch_mpc_run_jax.npz": ("test_torch_mpc_run", "_jax_side"),
     "torch_structure_jax.json": ("test_torch_ops", "_structure_recording"),
     "torch_transcribe_jax.npz": ("test_torch_transcribe", "_recording"),
+    "torch_unheld_jax.npz": ("test_torch_unheld", "_recording"),
     "torch_variants_linearize_jax.npz": ("test_torch_variants",
                                          "_linearize_recording"),
 }

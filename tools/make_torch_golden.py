@@ -37,6 +37,10 @@ and status:
   whole_body_acc(include_base=False) and B2G(use_quaternion=False)
   whole_body_rnea, to tests/data/torch_golden_b2g_n14_NAME.json (their
   surveys over 7 ticks: chip_smoke.py's 2 warm-up and 5 timed);
+- ``--case targets``: the hot config with "cholinv", batch 2, 3 ticks,
+  with ext_force_des (0, 0, -20) and arm_vel_des (0.1, 0, 0.05) for every
+  scenario, to tests/data/torch_golden_b2g_n14_targets.json (its survey
+  over chip_smoke.py's 3 ticks of it);
 - ``--variants``: short rollouts of the variants for the CPU tests
   (tests/test_torch_variants.py): Go2 N=3, 3 ticks, batch 2, the four
   whole-stage variants (include_base=False for centroidal_vel,
@@ -89,7 +93,7 @@ float32/int32 bytes; tpu_locoman_torch.convert.load_golden reads them.
 
     JAX_PLATFORMS=cpu python tools/make_torch_golden.py [--accurate]
         [--dynamics whole_body_aba]
-        [--case sequential|scaled|b2|rnea_noacc|acc_nobase|euler]
+        [--case sequential|scaled|b2|rnea_noacc|acc_nobase|euler|targets]
         [--formulations] [--variants] [--against] [--violation-survey]
         [--parity-go2] [--parity-spread T] [--agreement flagship|n30]
 """
@@ -135,6 +139,10 @@ CASES = {
                    "torch_golden_b2g_n14_acc_nobase.json", 7),
     "euler": (dict(SETUP, robot_kwargs={"use_quaternion": False}),
               "torch_golden_b2g_n14_euler.json", 7),
+    # nonzero force and arm targets, over chip_smoke.py's 3 ticks of them
+    "targets": (dict(SETUP, ticks=3, ext_force_des=[0.0, 0.0, -20.0],
+                     arm_vel_des=[0.1, 0.0, 0.05]),
+                "torch_golden_b2g_n14_targets.json", 3),
 }
 SPREADS = os.path.join(DATA, "torch_spreads.json")
 # --agreement: (setup, factorizer, against, ticks)
@@ -218,17 +226,26 @@ def make_mpc(s, factorizer=None):
                                     factorizer=factorizer or s["factorizer"])))
 
 
-def rollout(mpc, carry, targets, ticks, dt_min):
-    """Yield (tick, carry, stats as numpy) over the ticks."""
+def rollout(mpc, carry, targets, ticks, dt_min, s=None):
+    """Yield (tick, carry, stats as numpy) over the ticks; a setup ``s``
+    with "ext_force_des" and "arm_vel_des" gives every scenario those
+    targets too."""
     import jax
     import jax.numpy as jnp
 
     from tpu_locoman.parallel import batched_step
 
-    step = batched_step(mpc, donate=False)
+    if s is not None and "ext_force_des" in s:
+        ext, arm = (jnp.asarray(s[k], jnp.float32)
+                    for k in ("ext_force_des", "arm_vel_des"))
+        vstep = jax.jit(jax.vmap(
+            lambda c, t, b: mpc.step(c, t, b, ext, arm),
+            in_axes=(0, None, 0)))
+    else:
+        vstep = batched_step(mpc, donate=False)
     for k in range(ticks):
-        carry, stats = step(carry, jnp.float32(k * dt_min),
-                            jnp.asarray(targets))
+        carry, stats = vstep(carry, jnp.float32(k * dt_min),
+                             jnp.asarray(targets))
         yield k, carry, jax.device_get(stats)
 
 
@@ -249,7 +266,7 @@ def against(path, factorizer=None, record=False):
     gx = gv = gr = 0.0
     vs, refs = [], []
     for k, carry, st in rollout(mpc, carry, gold["targets"], s["ticks"],
-                                s["dt_min"]):
+                                s["dt_min"], s):
         ref = gold["ticks"][k]
         x = np.asarray(jax.device_get(carry.x_init))
         v = np.asarray(st["max_violation"])
@@ -285,7 +302,7 @@ def violation_survey(s, batch=SURVEY_BATCH, ticks=SURVEY_TICKS):
     targets[:, 0] = 0.2
     per_tick = []
     for k, _, st in rollout(mpc, batched_init(mpc, batch), targets, ticks,
-                            s["dt_min"]):
+                            s["dt_min"], s):
         v = np.asarray(st["max_violation"])
         per_tick.append(float(v.mean()))
         print(k, "max_violation mean", per_tick[-1], "worst", float(v.max()),
@@ -629,7 +646,7 @@ def main():
     init = jax.device_get(carry)
     ticks = []
     for k, carry, st in rollout(mpc, carry, targets, s["ticks"],
-                                s["dt_min"]):
+                                s["dt_min"], s):
         ticks.append(_tick(carry, st))
         print(k, np.asarray(st["max_violation"]), flush=True)
     out = {"setup": s, "targets": pack(targets), "init": _init(init),

@@ -1,3 +1,12 @@
 """Dynamics formulations."""
 
-from .formulations import FORMULATIONS, make_formulation  # noqa: F401
+from .formulations import (  # noqa: F401
+    FORMULATIONS,
+    CentroidalAcc,
+    CentroidalVel,
+    Formulation,
+    WholeBodyABA,
+    WholeBodyAcc,
+    WholeBodyRNEA,
+    make_formulation,
+)

@@ -1,7 +1,9 @@
 """Gait sequencing and swing-foot velocity profiles.
 
-PyTorch counterpart of ``tpu_locoman/gait.py`` (``GaitSequence`` and
-``get_spline_vel_z``), batched over the leading dimensions of ``t``.
+PyTorch counterpart of ``tpu_locoman/gait.py``: ``GaitSequence``, the
+swing velocity profiles (``get_spline_vel_z``, ``get_bezier_vel_z``) and
+``CubicSpline``, batched over the leading dimensions of their tensor
+arguments.
 """
 
 import torch
@@ -69,17 +71,46 @@ class GaitSequence:
         return contact, swing_sched
 
 
-def _spline_vel(t, t0, t1, pos0, vel0, pos1, vel1):
-    """Velocity of the OCS2-style cubic spline through (t0, pos0, vel0) and
-    (t1, pos1, vel1); every argument may be a tensor."""
-    dt = t1 - t0
-    dpos = pos1 - pos0
-    dvel = vel1 - vel0
-    c1 = vel0 * dt
-    c2 = -(3.0 * vel0 + dvel) * dt + 3.0 * dpos
-    c3 = (2.0 * vel0 + dvel) * dt - 2.0 * dpos
-    tn = (t - t0) / dt
-    return (3.0 * c3 * tn**2 + 2.0 * c2 * tn + c1) / dt
+# ---------------------------------------------------------------------------
+# Swing trajectory helpers; every argument may be a tensor or a number and
+# they broadcast over the leading dimensions.
+# ---------------------------------------------------------------------------
+
+def cubic_bezier_derivative(p0, p1, phase):
+    return 6.0 * phase * (1.0 - phase) * (p1 - p0)
+
+
+def get_bezier_vel_z(swing_phase, swing_period, h_max=0.1):
+    """crl-loco style Bezier vertical swing velocity."""
+    return torch.where(
+        swing_phase < 0.5,
+        cubic_bezier_derivative(0.0, h_max, 2.0 * swing_phase),
+        cubic_bezier_derivative(h_max, 0.0, 2.0 * swing_phase - 1.0),
+    ) * 2.0 / swing_period
+
+
+class CubicSpline:
+    """OCS2-style cubic spline through (t0, pos0, vel0) and (t1, pos1,
+    vel1)."""
+
+    def __init__(self, t0, t1, pos0, vel0, pos1, vel1):
+        self.t0 = t0
+        self.t1 = t1
+        self.dt = t1 - t0
+        dpos = pos1 - pos0
+        dvel = vel1 - vel0
+        self.c0 = pos0
+        self.c1 = vel0 * self.dt
+        self.c2 = -(3.0 * vel0 + dvel) * self.dt + 3.0 * dpos
+        self.c3 = (2.0 * vel0 + dvel) * self.dt - 2.0 * dpos
+
+    def position(self, t):
+        tn = (t - self.t0) / self.dt
+        return self.c3 * tn**3 + self.c2 * tn**2 + self.c1 * tn + self.c0
+
+    def velocity(self, t):
+        tn = (t - self.t0) / self.dt
+        return (3.0 * self.c3 * tn**2 + 2.0 * self.c2 * tn + self.c1) / self.dt
 
 
 def get_spline_vel_z(swing_phase, swing_period, h_max=0.1, v_liftoff=0.1,
@@ -88,6 +119,7 @@ def get_spline_vel_z(swing_phase, swing_period, h_max=0.1, v_liftoff=0.1,
     boundary conditions; arguments broadcast."""
     mid = swing_period / 2.0
     t = swing_phase * swing_period
-    v1 = _spline_vel(t, 0.0, mid, 0.0, v_liftoff, h_max, 0.0)
-    v2 = _spline_vel(t, mid, swing_period, h_max, 0.0, 0.0, v_touchdown)
+    v1 = CubicSpline(0.0, mid, 0.0, v_liftoff, h_max, 0.0).velocity(t)
+    v2 = CubicSpline(mid, swing_period, h_max, 0.0, 0.0,
+                     v_touchdown).velocity(t)
     return torch.where(swing_phase < 0.5, v1, v2)

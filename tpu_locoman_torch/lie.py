@@ -22,6 +22,11 @@ def _dot(a, b):
     return (a * b).sum(-1)
 
 
+def quat_identity(dtype=torch.float32, device=None):
+    """The identity rotation (x, y, z, w) = (0, 0, 0, 1)."""
+    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
+
+
 def quat_mul(q1, q2):
     """Hamilton product q1 * q2, both (..., 4) in (x, y, z, w) order."""
     x1, y1, z1, w1 = q1.unbind(-1)
@@ -114,6 +119,15 @@ def so3_exp_quat(omega):
     return torch.cat([half_sinc[..., None] * omega, w[..., None]], dim=-1)
 
 
+def so3_exp_matrix(omega):
+    """Rodrigues formula, (..., 3) -> (..., 3, 3): R = I + sinc w^ +
+    cosc w^^2."""
+    theta2 = _dot(omega, omega)
+    W = skew(omega)
+    return (_eye3(omega) + _sinc(theta2)[..., None, None] * W
+            + _cosc(theta2)[..., None, None] * (W @ W))
+
+
 def quat_log(q):
     """Log map of a unit quaternion to a rotation vector (Pinocchio log3)."""
     w = q[..., 3]
@@ -128,6 +142,23 @@ def quat_log(q):
         small, 2.0 + s2 / 3.0,
         2.0 * half_theta / torch.where(small, torch.ones_like(s), s))
     return scale[..., None] * xyz
+
+
+def so3_log_matrix(R):
+    """Rotation vector of a rotation matrix, (..., 3, 3) -> (..., 3); the
+    reference's formula, singular at theta = pi."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_theta = torch.clamp(0.5 * (trace - 1.0), -1.0, 1.0)
+    theta = torch.acos(cos_theta)
+    w = torch.stack([R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0],
+                     R[..., 1, 0] - R[..., 0, 1]], dim=-1)
+    theta2 = theta * theta
+    # w = 2 sin(theta) axis, so theta axis = w theta / (2 sin theta)
+    factor = _safe(
+        theta2,
+        lambda t2: torch.sqrt(t2) / (2.0 * torch.sin(torch.sqrt(t2))),
+        0.5 + theta2 / 12.0)
+    return factor[..., None] * w
 
 
 def se3_exp(u):

@@ -65,8 +65,9 @@ class MPC:
             from .solver.sqp import PRESETS
 
             if config not in PRESETS:
-                raise NotImplementedError(
-                    f"config preset {config!r} is not ported yet")
+                raise ValueError(
+                    f"unknown config preset {config!r}; "
+                    f"available: {sorted(PRESETS)}")
             config = PRESETS[config]()
         if flip_reset not in (True, False, "zero", "aba"):
             raise ValueError(f"unknown flip_reset {flip_reset!r}")

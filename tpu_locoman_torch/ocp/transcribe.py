@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import rbda
+from ..dynamics.formulations import SharedParams, StageParams
 from ..gait import get_spline_vel_z
 
 _INF = 1e9
@@ -137,7 +138,8 @@ class Transcription:
                                 v_liftoff=lim[..., 0:1],
                                 v_touchdown=lim[..., 1:2])
 
-    def stage_residual(self, dx, u, dx_next, sp, shared):
+    def stage_residual(self, dx, u, dx_next, sp: StageParams,
+                       shared: SharedParams):
         """All constraint rows, (..., B, N, m), for node tensors with leading
         dims (..., B, N)."""
         form = self.form
@@ -176,7 +178,7 @@ class Transcription:
             rows.append(d["tau_j"])
         return torch.cat(rows, dim=-1)
 
-    def stage_bounds(self, sp, shared):
+    def stage_bounds(self, sp: StageParams, shared: SharedParams):
         """(l, u), each (B, N, m)."""
         form = self.form
         nf4, nj = form.n_feet, form.nj
@@ -455,7 +457,7 @@ class Transcription:
         return g, GB[..., :ndx], GB[..., ndx:], C
 
     # ------------------------------------------------------------------
-    def objective_data(self, shared):
+    def objective_data(self, shared: SharedParams):
         form = self.form
         N = self.nodes
         x_des = form.x_des(shared)

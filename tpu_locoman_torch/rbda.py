@@ -22,6 +22,7 @@ Euler-ZYX base, whose chart velocities map to the local twist through the
 import torch
 
 from . import lie
+from .lie import integrate_q, skew  # noqa: F401  (re-exported)
 from .model import GRAVITY  # noqa: F401  (re-exported)
 
 
@@ -220,6 +221,12 @@ def frame_velocity_lwa_from(model, frame_name, R_w, p_w, v_loc):
     v_f = motion_act_inv(fR, fp, v_loc[..., j, :])
     R_wf = R_w[..., j, :, :] @ fR
     return torch.cat([mv(R_wf, v_f[..., :3]), mv(R_wf, v_f[..., 3:])], -1)
+
+
+def frame_velocity_lwa(model, frame_name, q, v):
+    """Frame spatial velocity (..., 6) in LOCAL_WORLD_ALIGNED coordinates,
+    as pin.getFrameVelocity(..., LOCAL_WORLD_ALIGNED) gives it."""
+    return frame_velocity_lwa_from(model, frame_name, *fk_vel(model, q, v))
 
 
 def frame_velocity_from(model, frame_name, R_w, p_w, v_loc,
@@ -739,6 +746,20 @@ def rnea_jacobians(model, q, v, a, ee_frames=(), forces_world=None):
         args += (ee, flat(fw))
     return [d.reshape(lead + d.shape[1:])
             for d in rnea_derivs.rnea_derivatives(*args)]
+
+
+def rnea_derivatives(model, q, v, a, ee_frames=(), forces_world=None):
+    """(dtau/dq, dtau/dv, dtau/da[, dtau/df]) of ``rnea``, analytic, over a
+    flat batch: q (B, nq), v and a (B, nv), forces_world (B, 3 * n_frames),
+    each output (B, nv, ...). The JAX package's function takes one sample
+    and is mapped over the batch; this one takes the batch, and dtau/df is
+    left out (not None) without forces. It is ``rnea_derivs.
+    rnea_derivatives``: the plain version on CPU tensors, kernel K2 on CUDA
+    tensors. Quaternion base only."""
+    from . import rnea_derivs
+
+    return rnea_derivs.rnea_derivatives(model, q, v, a, ee_frames,
+                                        forces_world)
 
 
 def _primals(*xs):

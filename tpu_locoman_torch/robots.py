@@ -3,8 +3,10 @@
 PyTorch counterpart of ``tpu_locoman/robots/__init__.py``. The port keeps
 its own byte-for-byte copies of the JAX package's specs (``go2.json``,
 ``b2.json``, ``b2g.json`` and ``b2g_arm_locked.json``) in
-``tpu_locoman_torch/specs/`` (a test holds them equal). A robot of one's
-own is built from its URDF/SRDF with ``tpu_locoman_torch.urdf``.
+``tpu_locoman_torch/specs/`` (a test holds them equal). Where a robot's
+spec is absent, it is built from the first of ``ASSET_ROOTS`` that holds
+its URDF (``tpu_locoman_torch.urdf``), as the JAX package does; a robot of
+one's own is built from its URDF/SRDF the same way.
 """
 
 import dataclasses
@@ -14,14 +16,45 @@ import os
 import numpy as np
 
 from .gait import GaitSequence
-from .model import model_from_dict
+from .model import RobotModel, model_from_dict  # noqa: F401  (re-exported)
+from .urdf import (build_reduced_model, load_srdf_reference_configurations,
+                   parse_urdf)
 
 SPEC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "specs")
+# Where a robot without a spec is parsed from: the URDF/SRDF trees under
+# $TPU_LOCOMAN_ASSETS, then under the reference's robot descriptions.
+ASSET_ROOTS = [
+    os.environ.get("TPU_LOCOMAN_ASSETS", ""),
+    "/root/reference/robots",
+]
 
 
 def load_spec(spec_name):
-    with open(os.path.join(SPEC_DIR, spec_name + ".json")) as f:
+    """The model of ``specs/<spec_name>.json``, or None if it is absent."""
+    path = os.path.join(SPEC_DIR, spec_name + ".json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
         return model_from_dict(json.load(f))
+
+
+def _build_from_urdf(urdf_rel, srdf_rel, lock_joints=None):
+    """The model parsed from ``urdf_rel`` under the first of ASSET_ROOTS
+    that has it, with the joints ``lock_joints`` locked at the free-flyer
+    neutral configuration, and the SRDF's reference configurations."""
+    for root in ASSET_ROOTS:
+        urdf = os.path.join(root, urdf_rel)
+        if root and os.path.exists(urdf):
+            model = parse_urdf(urdf)
+            if lock_joints:
+                q_neutral = np.zeros(model.nq)
+                q_neutral[6] = 1.0
+                model = build_reduced_model(model, list(lock_joints),
+                                            q_neutral)
+            load_srdf_reference_configurations(
+                model, os.path.join(root, srdf_rel))
+            return model
+    raise FileNotFoundError(f"no spec and no URDF found for {urdf_rel}")
 
 
 def _quat_to_euler_zyx_np(q):
@@ -87,7 +120,9 @@ class Go2(Robot):
     """12-DoF Unitree Go2."""
 
     def __init__(self, reference_pose="standing", use_quaternion=True):
-        super().__init__(load_spec("go2"), reference_pose, base_frame="base",
+        model = load_spec("go2") or _build_from_urdf(
+            "go2_description/urdf/go2.urdf", "go2_description/srdf/go2.srdf")
+        super().__init__(model, reference_pose, base_frame="base",
                          use_quaternion=use_quaternion)
         self.joint_pos_min = np.tile([-1.0472, -1.5708, -2.7227], 4)
         self.joint_pos_max = np.tile([1.0472, 3.4907, -0.83776], 4)
@@ -104,8 +139,9 @@ class B2(Robot):
         if payload not in (None, "front", "rear"):
             raise ValueError(f"payload must be None, 'front' or 'rear', got "
                              f"{payload!r}")
-        super().__init__(load_spec("b2"), reference_pose,
-                         use_quaternion=use_quaternion)
+        model = load_spec("b2") or _build_from_urdf(
+            "b2_description/urdf/b2.urdf", "b2_description/srdf/b2.srdf")
+        super().__init__(model, reference_pose, use_quaternion=use_quaternion)
         self.joint_pos_min = np.tile([-0.87, -0.94, -2.82], 4)
         self.joint_pos_max = np.tile([0.87, 4.69, -0.43], 4)
         self.joint_vel_max = np.tile([23.0, 23.0, 14.0], 4)
@@ -122,8 +158,12 @@ class B2G(Robot):
 
     def __init__(self, reference_pose="standing_with_arm_up", ignore_arm=False,
                  use_quaternion=True):
-        super().__init__(load_spec("b2g_arm_locked" if ignore_arm else "b2g"),
-                         reference_pose, use_quaternion=use_quaternion)
+        spec, lock = (("b2g_arm_locked", range(14, 21)) if ignore_arm
+                      else ("b2g", [20]))
+        model = load_spec(spec) or _build_from_urdf(
+            "b2g_description/urdf/b2g.urdf", "b2g_description/srdf/b2g.srdf",
+            lock_joints=lock)
+        super().__init__(model, reference_pose, use_quaternion=use_quaternion)
         self.joint_pos_min = np.tile([-0.87, -0.94, -2.82], 4)
         self.joint_pos_max = np.tile([0.87, 4.69, -0.43], 4)
         self.joint_vel_max = np.tile([23.0, 23.0, 14.0], 4)
