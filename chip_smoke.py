@@ -1196,18 +1196,18 @@ def compare_factorizers(dev, ship, names, batch=8, ticks=3, solve_only=()):
 
 
 def reset_launches():
-    from tpu_locoman_torch import rnea_derivs
-    from tpu_locoman_torch.solver import chol_base, fac_whole
+    from tpu_locoman_torch import trace
 
-    chol_base.launches = rnea_derivs.launches = fac_whole.launches = 0
+    trace.reset_counters()
 
 
 def read_launches():
-    """(K1, K2, K3) launches since reset_launches."""
-    from tpu_locoman_torch import rnea_derivs
+    """(K1, K2, K3) launches since reset_launches (the trace counters)."""
+    from tpu_locoman_torch import rnea_derivs, trace
     from tpu_locoman_torch.solver import chol_base, fac_whole
 
-    return chol_base.launches, rnea_derivs.launches, fac_whole.launches
+    return tuple(trace.counter(m.LAUNCHES)
+                 for m in (chol_base, rnea_derivs, fac_whole))
 
 
 def load_spreads():
@@ -1834,7 +1834,7 @@ def run(args, stack):
     with open(os.path.join(ROOT, "SHIPPING.json")) as fh:
         ship = json.load(fh)["bench_defaults"]
     batch, warm, timed = 512, 2, 20
-    chol_base.launches = rnea_derivs.launches = fac_whole.launches = 0
+    reset_launches()
     fl, _ = run_flagship(dev, ship, batch, warm, timed)
     k1_launches, k2_launches, k3_flag = read_launches()
     ticks = warm + timed
@@ -1937,24 +1937,22 @@ def run(args, stack):
     # ---- 9. the accurate single-robot path -----------------------------------
     acc_cfg = T.SQPConfig.accurate()._replace(
         admm=T.ADMMConfig(iters=10, factorizer="pallas"))
-    chol_base.launches = rnea_derivs.launches = fac_whole.launches = 0
+    reset_launches()
     acc_mpc = accurate_mpc(T, acc_cfg)
     check(acc_mpc.device.type == "cuda", "MPC did not default to the card")
     warm, timed = 2, 20
     target = torch.tensor([[0.2, 0, 0, 0, 0, 0]], device=dev)
     acc = run_ticks(acc_mpc.step, acc_mpc.init_carry(1), target,
                     acc_mpc.dt_min, warm, timed)
-    acc_launches = (chol_base.launches, rnea_derivs.launches,
-                    fac_whole.launches)
+    acc_launches = read_launches()
     ticks = warm + timed
     check(acc_launches == (0, 5 * ticks, 5 * ticks),
           f"accurate path launches K1, K2, K3 = {acc_launches}")
     check(acc["viol_mean"] <= ACC_GATE,
           f"accurate violation mean {acc['viol_mean']} > {ACC_GATE}")
-    chol_base.launches = rnea_derivs.launches = fac_whole.launches = 0
+    reset_launches()
     _, outs = acc_mpc.run(10, target)
-    run_launches = (chol_base.launches, rnea_derivs.launches,
-                    fac_whole.launches)
+    run_launches = read_launches()
     check(run_launches == (0, 50, 50), f"MPC.run launches {run_launches}")
     for k_, x in outs.items():
         check(bool(torch.isfinite(x.float()).all()), f"MPC.run: non-finite {k_}")
@@ -1979,14 +1977,13 @@ def run(args, stack):
                      float(np.mean(acc["tick_ms"])), accurate_ticks))
 
     # ---- 10. accurate mode at production batch --------------------------------
-    chol_base.launches = rnea_derivs.launches = fac_whole.launches = 0
+    reset_launches()
     warm, timed = 1, 5
     prod_mpc = accurate_mpc(T, "accurate")
     prod = run_ticks(prod_mpc.step, prod_mpc.init_carry(512),
                      target.repeat(512, 1), prod_mpc.dt_min, warm, timed)
     ticks = warm + timed
-    prod_launches = (chol_base.launches, rnea_derivs.launches,
-                     fac_whole.launches)
+    prod_launches = read_launches()
     # K1: 15 nodes in prepare and 14 in each of four eq_project passes
     check(prod_launches[0] == 71 * ticks and prod_launches[1] == 5 * ticks
           and prod_launches[2] == 0,
@@ -2034,10 +2031,10 @@ def run(args, stack):
     f = r2.standard_normal((E, 3 * len(ee))).astype(np.float32) * 50.0
     qt, vt, at, ft = (torch.tensor(x, device=dev) for x in (q, v, a, f))
     tau = rbda.rnea(m, qt, vt, at, ee, ft)
-    chol_base.launches = rnea_derivs.launches = 0
+    reset_launches()
     out = rbda.aba_derivatives(m, qt, vt, tau, ee, ft)
     torch.cuda.synchronize()
-    aba_launches = (chol_base.launches, rnea_derivs.launches)
+    aba_launches = read_launches()[:2]
     check(aba_launches == (1, 1),
           f"aba_derivatives launched K1, K2 {aba_launches} times")
     with plain_kernels():
@@ -2087,11 +2084,10 @@ def run(args, stack):
 
     # ---- 14. the whole_body_aba path -----------------------------------------
     warm, timed = 2, 10
-    chol_base.launches = rnea_derivs.launches = fac_whole.launches = 0
+    reset_launches()
     ab, ab_mpc = run_flagship(dev, ship, batch, warm, timed,
                               dynamics="whole_body_aba")
-    ab_launches = (chol_base.launches, rnea_derivs.launches,
-                   fac_whole.launches)
+    ab_launches = read_launches()
     ticks = warm + timed
     # K1 per tick: the 15 node blocks of the factorization, and ABA's mass
     # matrix once in linearize, once for all line-search trials and once
@@ -2100,10 +2096,10 @@ def run(args, stack):
           f"whole_body_aba launches K1, K2, K3 = {ab_launches}")
     check(ab["viol_mean"] <= VIOL_GATE,
           f"whole_body_aba violation mean {ab['viol_mean']} > {VIOL_GATE}")
-    chol_base.launches = rnea_derivs.launches = 0
+    reset_launches()
     ret = ab_mpc.retract(ab["carry"].solver_state.Z, ab["carry"].x_init)
     torch.cuda.synchronize()
-    ret_launches = (chol_base.launches, rnea_derivs.launches)
+    ret_launches = read_launches()[:2]
     check(ret_launches == (1, 0), f"retract launches K1, K2 {ret_launches}")
     for k_, x in ret.items():
         check(x.shape[:2] == (batch, 14) and bool(torch.isfinite(x).all()),
@@ -2137,10 +2133,10 @@ def run(args, stack):
     others = []
     for name, k2_per_tick in (("whole_body_acc", 1), ("centroidal_acc", 0),
                               ("centroidal_vel", 0)):
-        chol_base.launches = rnea_derivs.launches = 0
+        reset_launches()
         mpc = hot_mpc(T, dev, "cholinv_pb", ship=ship, dynamics=name)
         r = run_ticks(mpc.step, mpc.init_carry(8), tg8, mpc.dt_min, 0, 3)
-        launches = (chol_base.launches, rnea_derivs.launches)
+        launches = read_launches()[:2]
         check(launches == (15 * 3, k2_per_tick * 3),
               f"{name} launches K1, K2 = {launches}")
         ret = mpc.retract(r["carry"].solver_state.Z, r["carry"].x_init)

@@ -26,7 +26,7 @@ from tpu_locoman import parallel as jpar  # noqa: E402
 from tpu_locoman.solver import qp as jqp  # noqa: E402
 from tpu_locoman.solver import sqp as jsqp  # noqa: E402
 import tpu_locoman_torch as T  # noqa: E402
-from tpu_locoman_torch import convert  # noqa: E402
+from tpu_locoman_torch import convert, trace  # noqa: E402
 from tpu_locoman_torch.solver import fac_whole  # noqa: E402
 from tpu_locoman_torch.solver import qp as tqp  # noqa: E402
 from tpu_locoman_torch.solver import sqp as tsqp  # noqa: E402
@@ -90,9 +90,10 @@ def test_eq_project_matches_jax(factorizer):
     assert ((N + 1) * P.shape[-1]) % 2 == 0
     W = (rng.uniform(size=(Bs, N, m)) < 0.7).astype(np.float32)
     resid = (rng.normal(size=(Bs, N, m)) * 0.1).astype(np.float32)
-    before = fac_whole.launches
+    before = trace.counter(fac_whole.LAUNCHES)
     out = tqp.eq_project(*_t(G, B, C, P, resid, W), factorizer=factorizer)
-    assert fac_whole.launches == before  # CPU tensors: the plain version
+    # CPU tensors: the plain version
+    assert trace.counter(fac_whole.LAUNCHES) == before
     for b in range(Bs):
         ref = jqp.eq_project(*(jnp.asarray(x[b]) for x in (G, B, C, P, resid,
                                                              W)),

@@ -32,7 +32,7 @@ from tpu_locoman.solver import qp as jqp  # noqa: E402
 from tpu_locoman.solver.pallas_base import chol_inv_base_batched  # noqa: E402
 from tpu_locoman.solver.pallas_fac import factorize_pallas  # noqa: E402
 import tpu_locoman_torch as T  # noqa: E402
-from tpu_locoman_torch import rnea_derivs  # noqa: E402
+from tpu_locoman_torch import rnea_derivs, trace  # noqa: E402
 from tpu_locoman_torch.solver import chol_base, fac_whole  # noqa: E402
 from tpu_locoman_torch.solver import qp as tqp  # noqa: E402
 
@@ -63,9 +63,10 @@ def test_k2_plain_matches_pallas_interpret(with_forces):
     else:
         ref = rnea_derivatives_pallas(m, q, v, a, interpret=True)
         args = (torch.tensor(q), torch.tensor(v), torch.tensor(a))
-    before = rnea_derivs.launches
+    before = trace.counter(rnea_derivs.LAUNCHES)
     out = rnea_derivs.rnea_derivatives(trob.model, *args)
-    assert rnea_derivs.launches == before  # CPU tensors: plain version
+    # CPU tensors: plain version
+    assert trace.counter(rnea_derivs.LAUNCHES) == before
     assert len(out) == len(ref) == (4 if with_forces else 3)
     for o, r in zip(out, ref):
         r = np.asarray(r)
@@ -161,9 +162,9 @@ def test_k2_tree_table_rejects_what_the_kernel_cannot_walk(parent):
 def test_k1_plain_matches_pallas_interpret(b, B):
     S = _spd(np.random.default_rng(b * 1000 + B), B, b)
     ref = np.asarray(chol_inv_base_batched(jnp.asarray(S), interpret=True))
-    before = chol_base.launches
+    before = trace.counter(chol_base.LAUNCHES)
     out = chol_base.chol_inv_node(torch.tensor(S)).numpy()
-    assert chol_base.launches == before
+    assert trace.counter(chol_base.LAUNCHES) == before
     # b <= 16: the plain version is the recursion's plain leaf itself
     np.testing.assert_array_equal(
         out, chol_base.chol_inv_base_plain(torch.tensor(S)).numpy())
@@ -190,9 +191,10 @@ def test_k1_node_plain_matches_jax_pallas_interpret(s):
     S = _spd(np.random.default_rng(s), 3, s)
     ref = np.asarray(jax.vmap(functools.partial(
         jqp.chol_inv, base=16, base_impl="pallas"))(jnp.asarray(S))[1])
-    before = chol_base.launches
+    before = trace.counter(chol_base.LAUNCHES)
     out = chol_base.chol_inv_node(torch.tensor(S)).numpy()
-    assert chol_base.launches == before  # CPU tensors: the plain version
+    # CPU tensors: the plain version
+    assert trace.counter(chol_base.LAUNCHES) == before
     np.testing.assert_allclose(out, ref, atol=1e-4 * (np.abs(ref).max() + 1))
 
 
@@ -201,9 +203,9 @@ def test_chol_inv_kernel_impl_on_cpu_is_the_plain_recursion(s):
     """chol_inv(base_impl="kernel") on CPU tensors recurses to the plain
     leaves: the same Linv as the plain recursion, and no launch."""
     S = torch.tensor(_spd(np.random.default_rng(s + 1), 2, s))
-    before = chol_base.launches
+    before = trace.counter(chol_base.LAUNCHES)
     L, Linv = tqp.chol_inv(S, 16, "kernel")
-    assert L is None and chol_base.launches == before
+    assert L is None and trace.counter(chol_base.LAUNCHES) == before
     ref = tqp.chol_inv(S, 16, "torch")[1]
     torch.testing.assert_close(Linv, ref, rtol=0, atol=0)
 
@@ -267,9 +269,10 @@ def test_k3_plain_matches_pallas_interpret():
     H = np.einsum("bnij,bnkj->bnik", A, A) / s + 3.0 * np.eye(s, dtype=np.float32)
     U = (0.1 * rng.normal(size=(Bs, K - 1, s, s))).astype(np.float32)
     b = rng.normal(size=(Bs, K, s)).astype(np.float32)
-    before = fac_whole.launches
+    before = trace.counter(fac_whole.LAUNCHES)
     fac = fac_whole.factorize_whole(torch.tensor(H), torch.tensor(U))
-    assert fac_whole.launches == before  # CPU tensors: the plain version
+    # CPU tensors: the plain version
+    assert trace.counter(fac_whole.LAUNCHES) == before
     x = tqp.solve_factorized(fac, torch.tensor(b)).numpy()
     for i in range(Bs):
         ref = factorize_pallas(jnp.asarray(H[i]), jnp.asarray(U[i]),

@@ -139,11 +139,27 @@ def test_solve_report_and_spy_plot(tmp_path):
 
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
+    """The profile holds the program's spans, on its timeline: the tick's
+    aten ops lie inside the tick's mpc.step span."""
+    from tpu_locoman_torch import trace
+
+    _, tm = _mpcs("centroidal_acc", {})
+    carry = tm.init_carry(1)
     with diagnostics.profile_trace(str(tmp_path / "trace")) as d:
         torch.ones(4) @ torch.ones(4)
+        tm.step(carry, 0.0, torch.tensor([TARGET]))
+    assert not trace.enabled()
     path = os.path.join(d, "trace.json")
     assert os.path.getsize(path) > 0
-    assert "traceEvents" in open(path).read()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    step = [e for e in events if e.get("name") == "mpc.step"]
+    assert len(step) == 1 and step[0]["ph"] == "X"
+    t0, t1 = step[0]["ts"], step[0]["ts"] + step[0]["dur"]
+    ops = [e["ts"] for e in events if e.get("cat") == "cpu_op"]
+    inside = sum(t0 <= t <= t1 for t in ops)
+    assert inside > 0.9 * len(ops) and inside < len(ops)
+    trace.reset()
 
 
 def _structure_recording():

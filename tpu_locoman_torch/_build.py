@@ -18,6 +18,8 @@ import subprocess
 import tempfile
 import time
 
+from . import trace
+
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(PKG_DIR, "_build")
@@ -107,7 +109,9 @@ def load():
     """The kernel library (built at first use), with argument types set."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
+        with trace.span("kernels.load") as sp:
+            lib = ctypes.CDLL(build())
+            sp.set(built=int(build_seconds > 0))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

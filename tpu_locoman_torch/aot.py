@@ -39,7 +39,7 @@ from torch.fx.experimental.proxy_tensor import make_fx
 from .mpc import MPCCarry
 from .solver import SolverState
 from .solver import chol_base, fac_whole  # noqa: F401  (the ops)
-from . import rbda, rnea_derivs
+from . import rbda, rnea_derivs, trace
 
 # the pytree nodes that cross the ABI need serialized names (once per
 # process), as the JAX package registers them for jax.export
@@ -76,6 +76,9 @@ def _export(mpc, fn, args, path):
     emit = getattr(torch.fx.config, "do_not_emit_stack_traces", None)
     if emit is not None:
         torch.fx.config.do_not_emit_stack_traces = True
+    # the program's spans stay no-ops while the step is traced
+    tracing = trace.enabled()
+    trace.disable()
     try:
         with torch.no_grad():
             gm = make_fx(fn, tracing_mode="fake",
@@ -91,6 +94,8 @@ def _export(mpc, fn, args, path):
     finally:
         if emit is not None:
             torch.fx.config.do_not_emit_stack_traces = emit
+        if tracing:
+            trace.enable()
     buf = io.BytesIO()
     torch.export.save(ep, buf)
     data = buf.getvalue()

@@ -9,6 +9,7 @@ or ``scenario`` of a batch), as the JAX package's take its one.
 """
 
 import contextlib
+import json
 import os
 from dataclasses import dataclass, field
 
@@ -199,13 +200,30 @@ def spy_plot(mpc, path, node=1, tol=1e-6):
 @contextlib.contextmanager
 def profile_trace(logdir):
     """torch.profiler over the block (the host, and the card when there is
-    one); on exit the Chrome trace is written to ``logdir``/trace.json."""
+    one), with the program's spans on (``trace``); on exit the Chrome trace
+    is written to ``logdir``/trace.json, the block's spans among its events
+    on the profiler's timeline."""
     from torch.profiler import ProfilerActivity, profile
+
+    from . import trace
 
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=acts) as prof:
-        yield logdir
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    was_on, first = trace.enabled(), len(trace.spans())
+    trace.enable()
+    try:
+        with profile(activities=acts) as prof:
+            yield logdir
+    finally:
+        if not was_on:
+            trace.disable()
+    path = os.path.join(logdir, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        doc = json.load(f)
+    doc["traceEvents"] += trace.chrome_events(
+        doc.get("baseTimeNanoseconds", 0), trace.spans()[first:])
+    with open(path, "w") as f:
+        json.dump(doc, f)

@@ -86,7 +86,7 @@ def worker(rank, world, address, backend, device, config):
 
     from . import distributed, parallel
     from .solver import chol_base, fac_whole
-    from . import rnea_derivs
+    from . import rnea_derivs, trace
 
     if device == "cuda":
         torch.cuda.set_device(rank % torch.cuda.device_count())
@@ -105,10 +105,10 @@ def worker(rank, world, address, backend, device, config):
         carries = parallel.shard_batch(parallel.batched_init(mpc, batch),
                                        mesh, device=device)
         local_t = parallel.shard_batch(targets, mesh, device=device)
-        chol_base.launches = rnea_derivs.launches = fac_whole.launches = 0
+        trace.reset_counters()
         carries, stats, ms = _ticks(mpc, carries, local_t, TICKS)
-        launches = (chol_base.launches, rnea_derivs.launches,
-                    fac_whole.launches)
+        launches = tuple(trace.counter(m.LAUNCHES)
+                         for m in (chol_base, rnea_derivs, fac_whole))
         x_sh = parallel.gather(carries.x_init, sh)
         mv = stats["max_violation"]
         total = mv.sum().reshape(1)

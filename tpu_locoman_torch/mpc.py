@@ -13,6 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import trace
 from .dynamics.formulations import SharedParams, StageParams, make_formulation
 from .ocp import Transcription
 from .solver import SQPConfig, SQPSolver, SolverState
@@ -212,6 +213,19 @@ class MPC:
         generated schedules, e.g. to give each scenario of a batch its own
         gait; the flip reset then reads the previous contact from
         ``prev_stage_params``, and is skipped when that is not given."""
+        with trace.span(trace.TICK, batch=carry.x_init.shape[0]):
+            with trace.span("mpc.prepare"):
+                warm, sp, shared = self._prepare(
+                    carry, t_current, base_vel_des, ext_force_des,
+                    arm_vel_des, stage_params, prev_stage_params)
+            new_state, stats = self.solver.solve(warm, sp, shared)
+            with trace.span("mpc.shift"):
+                return self._advance(carry, new_state), stats
+
+    def _prepare(self, carry, t_current, base_vel_des, ext_force_des,
+                 arm_vel_des, stage_params, prev_stage_params):
+        """The solve's warm start, stage parameters and shared parameters:
+        the schedules, the force warm start and the flip reset."""
         B = carry.x_init.shape[0]
         t = _scenario_time(t_current, B, self.device)
         shared = self.make_shared(carry.x_init, base_vel_des, ext_force_des,
@@ -241,8 +255,11 @@ class MPC:
                                                   d["forces"])
             Z[:, :, ndx:ndx + na] = torch.where(
                 node_mask[..., None], a_new, Z[:, :, ndx:ndx + na])
-        warm = carry.solver_state._replace(Z=Z)
-        new_state, stats = self.solver.solve(warm, sp, shared)
+        return carry.solver_state._replace(Z=Z), sp, shared
+
+    def _advance(self, carry, new_state):
+        """The next carry: the state integrated over the first node, the
+        torque hand-off and the warm shift of the solution."""
         ndx = self.form.ndx
         x_next = self.form.integrate(carry.x_init, new_state.Z[:, 1, :ndx])
         if self.form.tau_idx is not None:
@@ -253,7 +270,7 @@ class MPC:
         if self.warm_shift:
             new_state = new_state._replace(
                 Z=self._shift_Z(new_state.Z, carry.x_init, x_next))
-        return MPCCarry(x_next, new_state, tau_prev), stats
+        return MPCCarry(x_next, new_state, tau_prev)
 
     def run(self, n_loops, base_vel_des, ext_force_des=None, arm_vel_des=None,
             x_init=None, batch=1):

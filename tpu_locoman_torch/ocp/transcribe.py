@@ -35,7 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import rbda
+from .. import rbda, trace
 from ..dynamics.formulations import SharedParams, StageParams
 from ..gait import get_spline_vel_z
 
@@ -241,6 +241,7 @@ class Transcription:
         J[..., rows, self.cone_cols] = vals.reshape(u.shape[:-1] + (3 * nf,))
         return J
 
+    @trace.traced("ocp.linearize")
     def linearize(self, Z, stage_params, shared):
         """(g (B, N, m), G (B, N, m_dense, ndx), Bm (B, N, m_dense, nu),
         C (B, N, m_dense, ndx)) at Z (B, N+1, s)."""

@@ -35,11 +35,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import rbda
+from . import rbda, trace
 from .rbda import cross, motion_cross, motion_cross_star
 
-#: kernel launches made by ``derivative_pass`` (the CUDA path only)
-launches = 0
+#: trace counter of the kernel launches made by ``derivative_pass`` (the
+#: CUDA path only)
+LAUNCHES = "kernels.rnea_derivs.launches"
 
 
 def forward_quantities(model, q, v, a, ee_frames=(), forces_world=None):
@@ -357,7 +358,6 @@ def _launch(topo, Sw, Iw, sdot, Vl, A, Iv, IA, f, pf, v, a, fw, n, nv, nfr,
             n_pairs, n_wpairs, n_outs):
     from ._build import load
 
-    global launches
     B = v.shape[0]
     shapes = {"Sw": (B, nv, 6), "Iw": (B, n, 6, 6), "sdot": (B, nv, 6),
               "Vl": (B, n, 6), "A": (B, n, 6), "Iv": (B, n, 6),
@@ -382,7 +382,7 @@ def _launch(topo, Sw, Iw, sdot, Vl, A, Iv, IA, f, pf, v, a, fw, n, nv, nfr,
         ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"rnea_derivs kernel launch failed: CUDA error {rc}")
-    launches += 1
+    trace.count(LAUNCHES)
     return dq, dv, da, df
 
 
@@ -418,5 +418,7 @@ def rnea_derivatives(model, q, v, a, ee_frames=(), forces_world=None):
     with_f = forces_world is not None and len(ee_frames) > 0
     ee = tuple(ee_frames) if with_f else ()
     fw = forces_world if with_f else None
-    fq = forward_quantities(model, q, v, a, ee, fw)
-    return derivative_pass(model, fq, v, a, ee, fw)
+    with trace.span("rnea_derivs", B=q.shape[0], nq=q.shape[-1],
+                    nv=v.shape[-1], nf=fw.shape[-1] if with_f else 0):
+        fq = forward_quantities(model, q, v, a, ee, fw)
+        return derivative_pass(model, fq, v, a, ee, fw)

@@ -26,8 +26,11 @@ import ctypes
 
 import torch
 
-#: kernel launches made by ``chol_inv_node`` (the CUDA path only)
-launches = 0
+from .. import trace
+
+#: trace counter of the kernel launches made by ``chol_inv_node`` (the CUDA
+#: path only)
+LAUNCHES = "kernels.chol_inv_node.launches"
 
 #: widest block the kernel takes: two padded s x (s+4) f32 tiles per CTA,
 #: so that two CTAs share an SM (s = 112: 104 KB)
@@ -102,7 +105,6 @@ def _op(S: torch.Tensor, base: int) -> torch.Tensor:
 
 @_op.register_kernel("cuda")
 def _launch(S, base):
-    global launches
     from .._build import load
 
     _check(S)
@@ -116,7 +118,7 @@ def _launch(S, base):
     if rc != 0:
         raise RuntimeError(f"chol_inv_node kernel launch failed: CUDA error "
                            f"{rc}")
-    launches += 1
+    trace.count(LAUNCHES)
     return out.reshape(lead + (s, s))
 
 

@@ -36,8 +36,11 @@ import ctypes
 
 import torch
 
-#: kernel launches made by ``factorize_whole`` (the CUDA path only)
-launches = 0
+from .. import trace
+
+#: trace counter of the kernel launches made by ``factorize_whole`` (the
+#: CUDA path only)
+LAUNCHES = "kernels.fac_whole.launches"
 
 #: widest block the kernel takes: four padded s x (s+4) f32 tiles must fit
 #: in the 227 KB of shared memory one block can have (s = 112: 203 KB)
@@ -78,7 +81,6 @@ def _op(H: torch.Tensor, U: torch.Tensor
 
 @_op.register_kernel("cuda")
 def _launch(H, U):
-    global launches
     from .._build import load
 
     _check(H, U)
@@ -93,7 +95,7 @@ def _launch(H, U):
     if rc != 0:
         raise RuntimeError(f"factorize_whole kernel launch failed: CUDA error "
                            f"{rc}")
-    launches += 1
+    trace.count(LAUNCHES)
     return Linv, W, V
 
 

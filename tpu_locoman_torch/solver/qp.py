@@ -26,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from .blocked import (CyclicFactor, chol_blocked, factorize_cyclic,
                       solve_cyclic, tri_inverse_lower)
 from .chol_base import (MAX_S, chol_base_unrolled, chol_inv_base_plain,
@@ -123,6 +124,7 @@ def _check_config(cfg):
                          f"has {FACTORIZERS}")
 
 
+@trace.traced("qp.assemble")
 def assemble_blocks(G, B, C, P_diag, rho_vec, sigma, box_idx=None,
                     c_eye_rows=None):
     """Tridiagonal blocks of M = P + sigma I + A^T diag(rho) A. Returns
@@ -430,19 +432,21 @@ def _factorize_by_name(H, U, factorizer="auto", base=16):
     "cyclic" take the full-width coupling U (Bs, K-1, s, s)."""
     if factorizer == "auto":
         factorizer = "cholinv_pb" if H.is_cuda else "sequential"
-    if factorizer == "pallas":
-        return factorize_whole(H, U)
-    if factorizer == "cyclic":
-        return factorize_cyclic(H, U)
-    if factorizer in ("babe", "babe_pb"):
-        return factorize_babe(
-            H, U, chol_impl="cholinv_pb" if factorizer == "babe_pb"
-            else "cholinv", base=base)
-    if factorizer in ("cholinv", "cholinv_pb"):
-        return factorize(H, U, chol_impl=factorizer, base=base)
-    if factorizer == "sequential":
-        return factorize(H, U, chol_impl="blocked")
-    raise ValueError(f"unknown factorizer {factorizer!r}")
+    with trace.span("qp.factorize", factorizer=factorizer, Bs=H.shape[0],
+                    K=H.shape[1], s=H.shape[-1]):
+        if factorizer == "pallas":
+            return factorize_whole(H, U)
+        if factorizer == "cyclic":
+            return factorize_cyclic(H, U)
+        if factorizer in ("babe", "babe_pb"):
+            return factorize_babe(
+                H, U, chol_impl="cholinv_pb" if factorizer == "babe_pb"
+                else "cholinv", base=base)
+        if factorizer in ("cholinv", "cholinv_pb"):
+            return factorize(H, U, chol_impl=factorizer, base=base)
+        if factorizer == "sequential":
+            return factorize(H, U, chol_impl="blocked")
+        raise ValueError(f"unknown factorizer {factorizer!r}")
 
 
 def _solver_for(fac):
@@ -522,6 +526,7 @@ def kkt_polish(G, B, C, P_diag, q, l, u, z, box_idx=None, sigma=1e-6,
     return -Pinv * (q + _At_lam(A, D, lam))
 
 
+@trace.traced("qp.eq_project")
 def eq_project(G, B, C, P_diag, resid, W, sigma=1e-6, delta=1e-7, refine=2,
                factorizer="auto", base=16):
     """Minimum-norm correction zeroing the masked (equality) rows, the
@@ -584,19 +589,21 @@ def run_iters(work, q, l, u, cfg, x, z, y, iters, box_idx=None):
     """Fixed-count ADMM sweeps on prepared data (OSQP splitting)."""
     rho = work.rho_vec
     solve = _solver_for(work.fac)
-    for _ in range(iters):
-        rhs = cfg.sigma * x - q + _At_matvec(work.A, work.D, rho * z - y,
-                                             box_idx)
-        x_t = solve(work.fac, rhs)
-        z_t = _A_matvec(work.A, work.D, x_t, box_idx)
-        x_new = cfg.alpha * x_t + (1.0 - cfg.alpha) * x
-        z_relax = cfg.alpha * z_t + (1.0 - cfg.alpha) * z
-        z_new = torch.clamp(z_relax + y / rho, min=l, max=u)
-        y = y + rho * (z_relax - z_new)
-        x, z = x_new, z_new
+    with trace.span("qp.sweeps", iters=iters):
+        for _ in range(iters):
+            rhs = cfg.sigma * x - q + _At_matvec(work.A, work.D, rho * z - y,
+                                                 box_idx)
+            x_t = solve(work.fac, rhs)
+            z_t = _A_matvec(work.A, work.D, x_t, box_idx)
+            x_new = cfg.alpha * x_t + (1.0 - cfg.alpha) * x
+            z_relax = cfg.alpha * z_t + (1.0 - cfg.alpha) * z
+            z_new = torch.clamp(z_relax + y / rho, min=l, max=u)
+            y = y + rho * (z_relax - z_new)
+            x, z = x_new, z_new
     return x, z, y
 
 
+@trace.traced("qp.admm_solve")
 def admm_solve(G, B, C, P_diag, q, l, u, cfg, x0=None, z0=None, y0=None,
                box_idx=None, return_work=False, c_eye_rows=None):
     """min 1/2 d^T P d + q^T d  s.t.  l <= A d <= u, per scenario.

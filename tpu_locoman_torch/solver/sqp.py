@@ -13,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from .qp import (ADMMConfig, _A_matvec, admm_solve, eq_project, kkt_polish,
                  run_iters)
 
@@ -160,7 +161,8 @@ class SQPSolver:
         prev = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = False
         try:
-            return self._solve(state, stage_params, shared)
+            with trace.span("sqp.solve", sqp_iters=self.cfg.sqp_iters):
+                return self._solve(state, stage_params, shared)
         finally:
             torch.backends.cuda.matmul.allow_tf32 = prev
 
@@ -195,8 +197,10 @@ class SQPSolver:
             z_admm = torch.where(keep, z_admm, torch.zeros_like(z_admm))
             y_admm = torch.where(keep, y_admm, torch.zeros_like(y_admm))
             if cfg.line_search:
-                Z, alpha, max_viol, g_new = self._line_search(
-                    Z, d, obj, sp, shared, l_b, u_b, g)
+                with trace.span("sqp.line_search", trials=cfg.n_trials,
+                                batch=Z.shape[0]):
+                    Z, alpha, max_viol, g_new = self._line_search(
+                        Z, d, obj, sp, shared, l_b, u_b, g)
             else:
                 Z = Z + d
                 alpha = torch.ones(Z.shape[0], device=Z.device)
@@ -207,22 +211,26 @@ class SQPSolver:
             # fresh residuals at the stepped iterate against the same
             # linearization and factorization, warm started from the main
             # QP's state shifted by the step taken
-            q2 = t.objective_gradient(Z, obj)
-            Ad = _A_matvec(work.A, work.D, d, box)
-            a3 = alpha[:, None, None]
-            d2, z_admm, y_admm = run_iters(
-                work, q2, l_b - g_new, u_b - g_new, cfg.admm, (1.0 - a3) * d,
-                z_admm - a3 * Ad, y_admm, cfg.corrector_iters, box_idx=box)
-            bad2 = torch.isnan(d2).any(-1).any(-1)
-            d2 = torch.where(bad2[:, None, None], torch.zeros_like(d2), d2)
-            bad = bad | bad2
-            Z = Z + d2
-            g3 = t.evaluate(Z, sp, shared)
-            max_viol = _amax(_viol(g3, l_b, u_b))
+            with trace.span("sqp.corrector"):
+                q2 = t.objective_gradient(Z, obj)
+                Ad = _A_matvec(work.A, work.D, d, box)
+                a3 = alpha[:, None, None]
+                d2, z_admm, y_admm = run_iters(
+                    work, q2, l_b - g_new, u_b - g_new, cfg.admm,
+                    (1.0 - a3) * d, z_admm - a3 * Ad, y_admm,
+                    cfg.corrector_iters, box_idx=box)
+                bad2 = torch.isnan(d2).any(-1).any(-1)
+                d2 = torch.where(bad2[:, None, None], torch.zeros_like(d2),
+                                 d2)
+                bad = bad | bad2
+                Z = Z + d2
+                g3 = t.evaluate(Z, sp, shared)
+                max_viol = _amax(_viol(g3, l_b, u_b))
 
         if cfg.eq_projection > 0:
-            Z, max_viol = self._eq_projection(Z, max_viol, P_diag, sp, shared,
-                                              l_b, u_b)
+            with trace.span("sqp.eq_projection", passes=cfg.eq_projection):
+                Z, max_viol = self._eq_projection(Z, max_viol, P_diag, sp,
+                                                  shared, l_b, u_b)
 
         status = torch.where(bad, 2, torch.where(alpha <= 0.0, 1, 0)).to(
             torch.int32)
