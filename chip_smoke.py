@@ -109,7 +109,12 @@ Phases, one line each (any failure raises; exit code non-zero):
 33. get_bezier_vel_z, CubicSpline, so3_exp_matrix / so3_log_matrix and
     frame_velocity_lwa (feet and gripper) on the card against the CPU at
     the flagship's flat batch (512 x 14);
-34. one JSON line with each kernel's error, times, bound and launch counts
+34. the flagship tick at batch 512 copies nothing from the host and reads
+    nothing back: after two warm-up ticks, one tick with a shared clock
+    and one with a clock per scenario run under
+    torch.cuda.set_sync_debug_mode("error"), which raises at any call that
+    synchronises with the card;
+35. one JSON line with each kernel's error, times, bound and launch counts
     (per path under "path_launches").
 The bounds of 17, 18 and 21 are SPREAD_FACTOR times JAX against itself,
 and the gates of 19, 20 and 32 JAX's own violation widened by that (see
@@ -856,6 +861,44 @@ def phase_surface(dev, E=512 * 14):
             + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
             + f"; so3_log_matrix(so3_exp_matrix(w)) - w on the card {trip:.3g}"
             f" (tol {SO3_LOG_TOL}, theta up to pi - 0.1)")
+
+
+def phase_sync_free(dev, ship, batch=512, warm=2):
+    """34: the flagship tick issues no synchronising call. After ``warm``
+    ticks, one tick with the clock a Python number and one with a (batch,)
+    clock run under the sync debug mode "error"."""
+    import torch
+
+    import tpu_locoman_torch as T
+
+    mpc = hot_mpc(T, dev, ship["factorizer"], ship=ship)
+    step, carry = T.batched_step(mpc), T.batched_init(mpc, batch)
+    targets = torch.tensor([0.2, 0, 0, 0, 0, 0], device=dev).repeat(batch, 1)
+    dt = mpc.dt_min
+    for k in range(warm):
+        carry, _ = step(carry, k * dt, targets)
+    clock = torch.full((batch,), (warm + 1) * dt, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        carry, _ = step(carry, warm * dt, targets)
+        carry, stats = step(carry, clock, targets)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    viol = float(stats["max_violation"].mean())
+    check(bool(torch.isfinite(carry.x_init).all()) and viol <= VIOL_GATE,
+          f"sync-free ticks: violation mean {viol}")
+    return (f"[34 sync-free] B2G whole_body_rnea N=14 batch {batch}: 2 ticks "
+            f"(clock a number, then per scenario) under "
+            f"set_sync_debug_mode(\"error\") after {warm} warm-up ticks: "
+            f"no synchronising call; host returned after {host_ms:.2f} ms, "
+            f"device done after {wall_ms:.2f} ms; max_violation mean "
+            f"{viol:.4f} (gate {VIOL_GATE})")
 
 
 def run_ticks(step, carry, target, dt, warm, timed):
@@ -1668,7 +1711,7 @@ def main():
 
 
 def run(args, stack):
-    """Phases 1-34; ``stack`` ends the export workers and their files."""
+    """Phases 1-35; ``stack`` ends the export workers and their files."""
     import numpy as np
     import torch
 
@@ -2207,6 +2250,7 @@ def run(args, stack):
     _, tgt_launches, line = phase_targets(dev, ship, spreads, ocp_ms, batch)
     plog(line)
     plog(phase_surface(dev))
+    plog(phase_sync_free(dev, ship, batch))
 
     for tag, what, path, tick_ms, ticks_of in (profiles if args.profile
                                                 else []):
@@ -2216,7 +2260,7 @@ def run(args, stack):
              f"{tick_ms:.2f} without (idle {100 * (1 - dev_ms / tick_ms):.1f}%"
              f" of the unprofiled tick)")
 
-    # ---- 34. kernels ------------------------------------------------------------
+    # ---- 35. kernels ------------------------------------------------------------
     k3_main = next(r for r in k3_rows if (r["K"], r["Bs"]) == (14, 1))
     k2_main = k2_rows["B2G 7168"]
     # (K1, K2, K3) launches of every path's driven run

@@ -76,9 +76,14 @@ def test_loaded_step_equals_eager_step(exported):
 
 
 def _cached_tensors(mpc):
-    """Every tensor in the model's per-device caches."""
+    """Every tensor in the per-device caches: the model's, and the host
+    constants of the transcription, the formulation and the gait."""
+    caches = list(mpc.form.model.__dict__.get("_tensor_cache", {}).values())
+    for owner in (mpc.trans, mpc.form, mpc.gait):
+        caches += [c if isinstance(c, dict) else dict(enumerate(c)) for c in
+                   owner.__dict__.get("_device_consts", {}).values()]
     out = []
-    for cache in mpc.form.model.__dict__.get("_tensor_cache", {}).values():
+    for cache in caches:
         for v in cache.values():
             out += [x for x in (v if isinstance(v, tuple) else (v,))
                     if isinstance(x, torch.Tensor)]

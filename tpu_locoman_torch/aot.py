@@ -50,27 +50,37 @@ for _t in (SolverState, MPCCarry):
 
 
 def _fill_caches(mpc):
-    """Fill the model's lazily filled per-device caches on the MPC's device
-    (its tensors, the local spatial inertias, every frame's placement,
-    K2's tree table for the formulation's force frames)."""
+    """Fill the lazily filled per-device caches on the MPC's device (the
+    model's tensors, the local spatial inertias, every frame's placement,
+    K2's tree table for the formulation's force frames, and the host
+    constants of the transcription, the formulation and the gait)."""
     model, dev = mpc.form.model, mpc.device
     rbda.local_inertias(model, dev)
     for name in model.frames:
         rbda._frame_consts(model, name, dev)
     rnea_derivs._topology(model, tuple(mpc.form.ee_frames), dev)
+    mpc.trans.consts(dev)
+    mpc.form.consts(dev)
+    mpc.gait.periods(dev)
 
 
-def _cache_keys(model):
-    """(device, key) of every entry of the model's per-device caches."""
-    return {(d, k) for d, c in model.__dict__.get("_tensor_cache", {}).items()
+def _cache_keys(mpc):
+    """(owner, device, key) of every entry of the per-device caches."""
+    model = mpc.form.model
+    keys = {("model", d, k)
+            for d, c in model.__dict__.get("_tensor_cache", {}).items()
             for k in c}
+    for owner in (mpc.trans, mpc.form, mpc.gait):
+        keys |= {(type(owner).__name__,) + k
+                 for k in owner.__dict__.get("_device_consts", {})}
+    return keys
 
 
 def _export(mpc, fn, args, path):
     """Trace ``fn`` at ``args`` (the caches filled first), export,
     serialize."""
     _fill_caches(mpc)
-    keys = _cache_keys(mpc.form.model)
+    keys = _cache_keys(mpc)
     # recording a stack trace per node is a third of the trace's time
     # (torch 2.13 has the switch, 2.11 does not)
     emit = getattr(torch.fx.config, "do_not_emit_stack_traces", None)
@@ -83,7 +93,7 @@ def _export(mpc, fn, args, path):
         with torch.no_grad():
             gm = make_fx(fn, tracing_mode="fake",
                          _allow_non_fake_inputs=True)(*args)
-            added = _cache_keys(mpc.form.model) - keys
+            added = _cache_keys(mpc) - keys
             if added:
                 raise RuntimeError(f"the trace filled model caches "
                                    f"{sorted(added)}: fill them first")

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from .. import rbda
+from ..model import device_consts
 from ..rbda import model_difference, model_integrate
 
 class StageParams(NamedTuple):
@@ -87,6 +88,24 @@ class Formulation:
         self.n_feet = len(self.foot_frames)
         self.ee_frames = self.foot_frames + (
             [self.ext_force_frame] if self.ext_force_frame else [])
+
+    def consts(self, device):
+        """The host values of the stage functions as tensors on ``device``,
+        made once per device: the directions of the gravity split
+        ("f_front", "f_rear"), the reference configuration ("q0") and the
+        nonlinear dynamics rows ("dyn_nl_idx", where the formulation has
+        them)."""
+        return device_consts(self, self._make_consts, device)
+
+    def _make_consts(self, device):
+        c = {"f_front": torch.tensor([0.0, 0.0, 0.8], device=device),
+             "f_rear": torch.tensor([0.0, 0.0, 1.2], device=device),
+             "q0": torch.as_tensor(np.asarray(self.robot.q0, dtype=np.float32),
+                                   device=device)}
+        nl = self.dyn_nl_idx()
+        if nl is not None:
+            c["dyn_nl_idx"] = torch.as_tensor(nl, device=device)
+        return c
 
     def dx_next_pattern(self):
         """Constant Jacobian of the dynamics rows wrt dx_next."""
@@ -162,7 +181,7 @@ class Formulation:
             return self.dyn_residual(x_init, dx_ * n0, u_, zero_next, sp)
 
         dyn0, pull = torch.func.vjp(rows, dx, u)
-        idx = torch.as_tensor(self.dyn_nl_idx(), device=dx.device)
+        idx = self.consts(dx.device)["dyn_nl_idx"]
         basis = torch.eye(self.n_dyn, dtype=dx.dtype, device=dx.device)[idx]
         basis = basis.reshape((len(idx),) + (1,) * (dyn0.dim() - 1)
                               + (self.n_dyn,)).expand((len(idx),) + dyn0.shape)
@@ -177,11 +196,9 @@ class Formulation:
     def f_des(self, n_contacts):
         """(..., nf): 0.8/1.2 front/rear gravity split over contact feet."""
         f_gravity = rbda.GRAVITY * self.mass
-        dev = n_contacts.device
-        front = (torch.tensor([0.0, 0.0, 0.8], device=dev) * f_gravity
-                 / n_contacts[..., None])
-        rear = (torch.tensor([0.0, 0.0, 1.2], device=dev) * f_gravity
-                / n_contacts[..., None])
+        c = self.consts(n_contacts.device)
+        front = c["f_front"] * f_gravity / n_contacts[..., None]
+        rear = c["f_rear"] * f_gravity / n_contacts[..., None]
         parts = [front, front, rear, rear]
         if self.ext_force_frame:
             parts.append(torch.zeros_like(front))
@@ -290,7 +307,7 @@ class CentroidalVel(Formulation):
 
     def x_des(self, shared):
         lead = shared.base_vel_des.shape[:-1]
-        q0 = _q0(self, shared.base_vel_des.device)
+        q0 = self.consts(shared.base_vel_des.device)["q0"]
         return torch.cat([shared.base_vel_des, q0.expand(lead + q0.shape)],
                          -1)
 
@@ -301,11 +318,6 @@ class CentroidalVel(Formulation):
 
     def u_des(self, shared):
         return _zeros_then_forces(self, self.nv_opt, shared)
-
-
-def _q0(form, device):
-    return torch.as_tensor(np.asarray(form.robot.q0, dtype=np.float32),
-                           device=device)
 
 
 def _zeros_then_forces(form, n, shared, tail=0):
@@ -346,7 +358,7 @@ class _AccStateFormulation(Formulation):
 
     def x_des(self, shared):
         lead = shared.base_vel_des.shape[:-1]
-        q0 = _q0(self, shared.base_vel_des.device)
+        q0 = self.consts(shared.base_vel_des.device)["q0"]
         return torch.cat([q0.expand(lead + q0.shape), shared.base_vel_des,
                           shared.base_vel_des.new_zeros(lead + (self.nj,))],
                          dim=-1)

@@ -8,6 +8,8 @@ arguments.
 
 import torch
 
+from .model import device_consts
+
 FEET = ("FR_foot", "FL_foot", "RR_foot", "RL_foot")
 
 
@@ -38,6 +40,15 @@ class GaitSequence:
         else:
             raise ValueError(f"Gait: {gait_type} not supported")
 
+    def periods(self, device, dtype=torch.float32):
+        """The gait and swing periods as 0-dim tensors, made once per device
+        and dtype."""
+        return device_consts(
+            self, lambda dev, dt: tuple(
+                torch.tensor(p, dtype=dt, device=dev)
+                for p in (self.gait_period, self.swing_period)),
+            device, dtype)
+
     def get_gait_schedule(self, t_current, dts):
         """Contact (0/1) and swing-phase schedules, both (..., nodes, 4).
 
@@ -47,9 +58,7 @@ class GaitSequence:
         offs = torch.cat([torch.zeros(1, dtype=dts.dtype, device=dts.device),
                           torch.cumsum(dts[:-1], 0)])
         t = t_current[..., None] + offs
-        period = torch.tensor(self.gait_period, dtype=t.dtype, device=t.device)
-        swing_p = torch.tensor(self.swing_period, dtype=t.dtype,
-                               device=t.device)
+        period, swing_p = self.periods(t.device, t.dtype)
         gait_phase = _mod(t, period) / period
         swing_phase = _mod(t, swing_p) / swing_p
         if self.gait_type == "trot":

@@ -24,6 +24,26 @@ class FrameHost:
     p: np.ndarray
 
 
+def device_key(device):
+    """``device`` as its tensors report it: "cuda" is the current "cuda:N",
+    so that a cache keyed by device has one entry for both."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def device_consts(owner, build, device, *key):
+    """``build(device, *key)``, made once per device (and key) and kept on
+    ``owner``: the host values that a call reads, as tensors on the device
+    the call runs on, so that the call copies nothing from the host."""
+    key = (device_key(device),) + key
+    cache = owner.__dict__.setdefault("_device_consts", {})
+    if key not in cache:
+        cache[key] = build(*key)
+    return cache[key]
+
+
 @dataclass
 class RobotModel:
     """Movable joint 0 is the floating base; joints 1..n_links-1 are
@@ -90,10 +110,7 @@ class RobotModel:
         the tree's index constants, so that no call copies from the host:
         ``dof_link`` (nv,) int64, ``DM`` = ``anc[dof_link]`` (nv, nv) and
         the spatial gravity acceleration ``g_spatial`` (6,)."""
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            # one entry for "cuda" and the "cuda:N" its tensors report
-            device = torch.device("cuda", torch.cuda.current_device())
+        device = device_key(device)
         cache = self.__dict__.setdefault("_tensor_cache", {})
         key = str(device)
         if key not in cache:

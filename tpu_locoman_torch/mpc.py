@@ -47,6 +47,10 @@ class MPCCarry(NamedTuple):
 
 
 def _scenario_time(t, batch, device):
+    if not torch.is_tensor(t) and np.ndim(t) == 0:
+        # a number is a fill on the device, not a copy from the host
+        return torch.full((batch,), float(t), dtype=torch.float32,
+                          device=device)
     t = torch.as_tensor(t, dtype=torch.float32, device=device)
     return t.expand(batch) if t.dim() == 0 else t
 
@@ -90,6 +94,9 @@ class MPC:
         Q, R = self.form.default_weights()
         self.Q_diag, self.R_diag = Q, R
         self.W_diag = self.form.default_W()
+        # make_shared's host values, on the device once
+        self._shared_consts = tuple(self._f32(x) for x in (
+            swing_vel_limits, Q, R, self.W_diag))
         self._shift_index = self._shift_tables()
 
     def _f32(self, x):
@@ -112,6 +119,7 @@ class MPC:
 
         scal = lambda v: torch.full((B,), v, dtype=torch.float32,  # noqa: E731
                                     device=dev)
+        vel_lim, Q, R, W = self._shared_consts
         return SharedParams(
             x_init=x_init,
             base_vel_des=per(base_vel_des, 6),
@@ -119,11 +127,11 @@ class MPC:
             arm_vel_des=per(arm_vel_des, 3),
             swing_period=scal(self.swing_period),
             swing_height=scal(self.swing_height),
-            swing_vel_limits=self._f32(self.swing_vel_limits).expand(B, 2),
+            swing_vel_limits=vel_lim.expand(B, 2),
             n_contacts=scal(float(self.n_contacts)),
-            Q_diag=self._f32(self.Q_diag).expand(B, -1),
-            R_diag=self._f32(self.R_diag).expand(B, -1),
-            W_diag=self._f32(self.W_diag).expand(B, -1),
+            Q_diag=Q.expand(B, -1),
+            R_diag=R.expand(B, -1),
+            W_diag=W.expand(B, -1),
             tau_prev=per(tau_prev, self.form.nj),
         )
 
@@ -156,8 +164,9 @@ class MPC:
                      0, N - 2)
         wu = np.clip((told[:N] + self.dt_min - told[ju])
                      / (told[ju + 1] - told[ju]), 0.0, 1.0)
-        return (torch.as_tensor(j), self._f32(w)[:, None],
-                torch.as_tensor(ju), self._f32(wu)[:, None])
+        dev = self.device
+        return (torch.as_tensor(j, device=dev), self._f32(w)[:, None],
+                torch.as_tensor(ju, device=dev), self._f32(wu)[:, None])
 
     def _shift_Z(self, Z, x_old, x_new):
         """Time-consistent warm-start shift: interpolate the previous
@@ -278,9 +287,10 @@ class MPC:
         outs) with outs stacked (n_loops, B, ...)."""
         carry = self.init_carry(batch, x_init)
         outs = {"x": [], "max_violation": [], "alpha": [], "status": []}
+        ks = torch.arange(n_loops, dtype=torch.float32, device=self.device)
         for k in range(n_loops):
             # the tick's clock in float32 arithmetic, as the JAX scan has it
-            t = torch.tensor(float(k), device=self.device) * self.dt_min
+            t = ks[k] * self.dt_min
             carry, stats = self.step(carry, t, base_vel_des, ext_force_des,
                                      arm_vel_des)
             outs["x"].append(carry.x_init)

@@ -38,6 +38,7 @@ import torch
 from .. import rbda, trace
 from ..dynamics.formulations import SharedParams, StageParams
 from ..gait import get_spline_vel_z
+from ..model import device_consts
 
 _INF = 1e9
 
@@ -129,6 +130,44 @@ class Transcription:
         self.fric_cols = f0 + 3 * np.arange(nf4) + 2
         self.cone_cols = f0 + np.arange(3 * nf4)
 
+    _INDEX = ("dyn_nl_rows", "vel_rows", "cone_rows", "cone_cols", "sw_rows",
+              "sw_cols", "ext_rows", "ext_cols", "fric_rows", "fric_cols")
+
+    def consts(self, device):
+        """The box slots ("box_slots"), the split path's row and column
+        indices (under their attribute names, "cone_feet", the foot of each
+        cone column, and "one", the ext force rows' entry), the C pattern
+        ("C_pat") and the box limits ("q_min", "q_max", "v_max", "tau_max",
+        "inf") as tensors on ``device``, made once per device: a tick
+        copies nothing from the host."""
+        return device_consts(self, self._make_consts, device)
+
+    def _make_consts(self, device):
+        robot = self.form.robot
+
+        def f32(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+        def index(x):
+            return torch.as_tensor(np.asarray(x, np.int64), device=device)
+
+        c = {"box_slots": index(self.box_slots),
+             "q_min": f32(robot.joint_pos_min),
+             "q_max": f32(robot.joint_pos_max),
+             "v_max": f32(robot.joint_vel_max),
+             "inf": torch.tensor(_INF, device=device)}
+        if self.has_tau:
+            c["tau_max"] = f32(robot.joint_torque_max)
+        if self.C_pat is not None:
+            c["C_pat"] = torch.as_tensor(self.C_pat, device=device)
+        if self.split_ok:
+            c.update((k, index(getattr(self, k))) for k in self._INDEX
+                     if hasattr(self, k))
+            c["cone_feet"] = index(np.repeat(np.arange(self.form.n_feet), 3))
+            # an index assignment copies a Python number from the host
+            c["one"] = torch.ones((), device=device)
+        return c
+
     # ------------------------------------------------------------------
     def _swing_vel(self, swing, shared, lead):
         sp_ = _node(shared.swing_period, lead)[..., None]
@@ -183,24 +222,23 @@ class Transcription:
         form = self.form
         nf4, nj = form.n_feet, form.nj
         lead = sp.dt.shape
-        dev = sp.dt.device
+        lim = self.consts(sp.dt.device)
         zeros = sp.dt.new_zeros(lead + (self.n_eq + 2 * nf4,))
         l = [zeros]
         u = [torch.cat([sp.dt.new_zeros(lead + (self.n_eq,)),
                         sp.dt.new_full(lead + (2 * nf4,), _INF)], -1)]
-        f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)  # noqa: E731
-        big = torch.tensor(_INF, device=dev)
+        big = lim["inf"]
         smq = (sp.state_mask * sp.node0_mask)[..., None] > 0
-        l.append(torch.where(smq, f32(form.robot.joint_pos_min), -big))
-        u.append(torch.where(smq, f32(form.robot.joint_pos_max), big))
+        l.append(torch.where(smq, lim["q_min"], -big))
+        u.append(torch.where(smq, lim["q_max"], big))
         # an input v (centroidal_vel) is live at node 0 as well
         smv = (sp.state_mask * (1.0 if form.v_in_u else sp.node0_mask))[
             ..., None] > 0
-        vmax = f32(form.robot.joint_vel_max)
+        vmax = lim["v_max"]
         l.append(torch.where(smv, -vmax, -big))
         u.append(torch.where(smv, vmax, big))
         if self.has_tau:
-            tmax = f32(form.robot.joint_torque_max)
+            tmax = lim["tau_max"]
             tm = sp.tau_mask[..., None] > 0
             l.append(torch.where(tm, -tmax, -big))
             u.append(torch.where(tm, tmax, big))
@@ -219,13 +257,14 @@ class Transcription:
         nf = self.form.n_feet
         c = sp.contact[..., :nf]
         lead = sp.dt.shape
+        ix = self.consts(sp.dt.device)
         J = sp.dt.new_zeros(lead + (self.m_dense, self.s))
         J[..., :self.n_dyn, :] = self.form.dyn_lin_jacobian(sp)
-        J[..., self.sw_rows, self.sw_cols] = torch.repeat_interleave(
+        J[..., ix["sw_rows"], ix["sw_cols"]] = torch.repeat_interleave(
             1.0 - c, 3, dim=-1)
         if self.has_ext:
-            J[..., self.ext_rows, self.ext_cols] = 1.0
-        J[..., self.fric_rows, self.fric_cols] = c
+            J[..., ix["ext_rows"], ix["ext_cols"]] = ix["one"]
+        J[..., ix["fric_rows"], ix["fric_cols"]] = c
         return J
 
     def _cone_jac(self, u, sp):
@@ -237,8 +276,9 @@ class Transcription:
         vals = torch.stack([-2.0 * f[..., 0], -2.0 * f[..., 1],
                             2.0 * self.mu**2 * f[..., 2]], dim=-1) * c[..., None]
         J = u.new_zeros(u.shape[:-1] + (nf, self.s))
-        rows = np.repeat(np.arange(nf), 3)
-        J[..., rows, self.cone_cols] = vals.reshape(u.shape[:-1] + (3 * nf,))
+        ix = self.consts(u.device)
+        J[..., ix["cone_feet"], ix["cone_cols"]] = vals.reshape(
+            u.shape[:-1] + (3 * nf,))
         return J
 
     @trace.traced("ocp.linearize")
@@ -280,7 +320,7 @@ class Transcription:
             C = J[..., ndx + nu:]
         else:
             C_full = Z.new_zeros(md, ndx)
-            C_full[:self.n_dyn] = torch.as_tensor(self.C_pat, device=Z.device)
+            C_full[:self.n_dyn] = self.consts(Z.device)["C_pat"]
             C = C_full.expand(dx.shape[:-1] + C_full.shape)
         return g, J[..., :ndx], J[..., ndx:ndx + nu], C
 
@@ -417,7 +457,8 @@ class Transcription:
         # ---- dynamics rows: the formulation's values and Jacobian ---------
         d, dyn0, Jd = form.dyn_linearize(x_init, dx, u, sp, to_dx)
         q, v, forces, tau_j = d["q"], d["v"], d["forces"], d["tau_j"]
-        C_pat = torch.as_tensor(self.C_pat, device=Z.device)
+        ix = self.consts(Z.device)
+        C_pat = ix["C_pat"]
         g_dyn = dyn0 + dxn @ C_pat.T
 
         # ---- frame-velocity rows ------------------------------------------
@@ -449,9 +490,9 @@ class Transcription:
         g = torch.cat(rows, -1)
 
         GB = self._lin_jacobian(sp)
-        GB[..., self.dyn_nl_rows, :] = Jd
-        GB[..., self.vel_rows, :] = Jvel
-        GB[..., self.cone_rows, :] = self._cone_jac(u, sp)
+        GB[..., ix["dyn_nl_rows"], :] = Jd
+        GB[..., ix["vel_rows"], :] = Jvel
+        GB[..., ix["cone_rows"], :] = self._cone_jac(u, sp)
         C_full = Z.new_zeros(self.m_dense, ndx)
         C_full[:self.n_dyn] = C_pat
         C = C_full.expand(lead + C_full.shape)

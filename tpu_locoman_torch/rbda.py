@@ -669,7 +669,7 @@ def frame_kin_jac(model, frame_names, q, v, jacobians=True):
     anc = T["anc"]
     Sw = world_motion_axes(model, R_w, p_w)
     sv = Sw * v[..., None]
-    DM = anc[model.dof_link()]
+    DM = anc[T["dof_link"]]
     out = {k: [] for k in ("vel", "pos", "R", "Jq_vel", "Jv_vel", "Jq_pos",
                            "Jq_R")}
     S_lin, S_ang = Sw[..., :3], Sw[..., 3:]

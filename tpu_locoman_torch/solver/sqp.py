@@ -173,7 +173,7 @@ class SQPSolver:
         P_diag = t.hessian_diag(obj)
         l_b, u_b = t.bounds(sp, shared)
         Z, z_admm, y_admm = state.Z, state.z_admm, state.y_admm
-        box = t.box_slots
+        box = t.consts(Z.device)["box_slots"]
         for it in range(cfg.sqp_iters):
             admm_cfg = cfg.admm
             if cfg.admm_schedule is not None:
