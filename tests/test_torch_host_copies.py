@@ -8,8 +8,9 @@ Host data becomes a tensor through ``aten.lift_fresh`` (a numpy index, a
 Python number assigned into a tensor, ``torch.tensor(...)``,
 ``torch.as_tensor(ndarray)``; a Python number in arithmetic does not), so
 one warm tick under a dispatch mode counts it: the benchmark's
-configuration (B2G + Z1, N=14, the hot solver) at batch 3, and each of the
-five formulations at Go2 N=8 with the same solver."""
+configurations (B2G + Z1, N=14, the hot solver, and accurate mode with the
+closer's device tallies) at batch 3, and each of the five formulations at
+Go2 N=8 with the hot solver."""
 
 import collections
 import os
@@ -26,6 +27,7 @@ from benchmark import build, traffic  # noqa: E402
 from benchmark.cell import ROOT, load_json  # noqa: E402
 
 HOT = load_json(os.path.join(ROOT, "benchmark/configs/b2g_rnea_hot.json"))
+CONFIGS = ("b2g_rnea_hot", "b2g_rnea_accurate")
 MIX = load_json(os.path.join(ROOT, "benchmark/traffic/fleet_b512.json"))
 FORMULATIONS = ("whole_body_rnea", "whole_body_aba", "whole_body_acc",
                 "centroidal_acc", "centroidal_vel")
@@ -51,13 +53,14 @@ class HostCopies(TorchDispatchMode):
 
 
 def _config(case):
-    if case == "b2g_rnea_hot":
-        return HOT, 3
+    if case in CONFIGS:
+        path = os.path.join(ROOT, f"benchmark/configs/{case}.json")
+        return load_json(path), 3
     return dict(HOT, robot={"class": "Go2", "kwargs": {}}, nodes=8,
                 dynamics=case, formulation={}), 2
 
 
-@pytest.mark.parametrize("case", ("b2g_rnea_hot",) + FORMULATIONS)
+@pytest.mark.parametrize("case", CONFIGS + FORMULATIONS)
 def test_a_warm_tick_copies_nothing_from_the_host(case):
     cfg, batch = _config(case)
     dev = torch.device("cpu")

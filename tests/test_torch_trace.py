@@ -135,9 +135,10 @@ NESTING = {
     "qp.assemble": "qp.admm_solve", "qp.factorize": "qp.admm_solve",
     "qp.sweeps": "qp.admm_solve", "sqp.line_search": "sqp.solve",
     "sqp.corrector": "sqp.solve", "sqp.eq_projection": "sqp.solve",
-    "qp.eq_project": "sqp.eq_projection"}
+    "sqp.eq_projection.pass": "sqp.eq_projection",
+    "qp.eq_project": "sqp.eq_projection.pass"}
 #: the second parent of a span that the tick opens twice
-ALSO = {"ocp.linearize": {"sqp.eq_projection"},
+ALSO = {"ocp.linearize": {"sqp.eq_projection.pass"},
         "qp.factorize": {"qp.eq_project"}, "qp.sweeps": {"sqp.corrector"}}
 
 
@@ -171,6 +172,8 @@ def test_one_tick_records_every_span_in_its_place(tracer):
         {"trials": cfg.n_trials, "batch": 2}]
     assert [s.attrs for s in spans if s.name == "sqp.eq_projection"] == [
         {"passes": 1}]
+    assert [s.attrs for s in spans if s.name == "sqp.eq_projection.pass"] == [
+        {"k": 0}]
     for s in spans:
         assert all(type(v) in (int, str) for v in s.attrs.values())
 

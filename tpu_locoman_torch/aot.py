@@ -86,11 +86,9 @@ def _export(mpc, fn, args, path):
     emit = getattr(torch.fx.config, "do_not_emit_stack_traces", None)
     if emit is not None:
         torch.fx.config.do_not_emit_stack_traces = True
-    # the program's spans stay no-ops while the step is traced
-    tracing = trace.enabled()
-    trace.disable()
+    # the program's spans and tallies stay no-ops while the step is traced
     try:
-        with torch.no_grad():
+        with torch.no_grad(), trace.off():
             gm = make_fx(fn, tracing_mode="fake",
                          _allow_non_fake_inputs=True)(*args)
             added = _cache_keys(mpc) - keys
@@ -104,8 +102,6 @@ def _export(mpc, fn, args, path):
     finally:
         if emit is not None:
             torch.fx.config.do_not_emit_stack_traces = emit
-        if tracing:
-            trace.enable()
     buf = io.BytesIO()
     torch.export.save(ep, buf)
     data = buf.getvalue()

@@ -17,6 +17,11 @@ from .. import trace
 from .qp import (ADMMConfig, _A_matvec, admm_solve, eq_project, kkt_polish,
                  run_iters)
 
+#: the production guarantee of accurate mode, max-violation at most this:
+#: upstream's Fatrop ``tol`` (lukasmolnar/pino-locoman,
+#: ``optimization/ocp.py:248-262``)
+PRODUCTION_TOL = 1e-3
+
 
 class SQPConfig(NamedTuple):
     sqp_iters: int = 1
@@ -130,28 +135,42 @@ class SQPSolver:
         onto the equality manifold, each re-linearized at the current
         iterate. The passes run unguarded (the first routinely overshoots
         on the rnea curvature); the best iterate by true max violation is
-        kept per scenario, and a non-finite pass restarts from it."""
+        kept per scenario, and a non-finite pass restarts from it.
+
+        Tallies on the device (``trace.tally``): a histogram of the pass
+        whose iterate was kept, 0 for the SQP step's own
+        (``sqp.eq_projection.kept_pass``, summing to the scenarios through
+        the closer), and the scenarios kept within ``PRODUCTION_TOL``
+        (``.within_tol``)."""
         t = self.trans
         cfg = self.cfg
         md = t.m_dense
         eq_rows = (u_b[..., :md] - l_b[..., :md]) < 1e-7
         best_Z, best_viol = Z, max_viol
-        for _ in range(cfg.eq_projection):
-            g_now, Gf, Bf, Cf = t.linearize(Z, sp, shared)
-            row_norm = torch.maximum(
-                Gf.abs().amax(-1),
-                torch.maximum(Bf.abs().amax(-1), Cf.abs().amax(-1)))
-            W = (eq_rows & (row_norm > 1e-8)).to(Z.dtype)
-            r = l_b[..., :md] - g_now[..., :md]
-            Z = Z + eq_project(Gf, Bf, Cf, P_diag, r, W,
-                               factorizer=cfg.admm.factorizer,
-                               base=cfg.admm.chol_base)
-            viol_try = _amax(_viol(t.evaluate(Z, sp, shared), l_b, u_b))
-            finite = torch.isfinite(viol_try)
-            better = finite & (viol_try <= best_viol)
-            best_Z = torch.where(better[:, None, None], Z, best_Z)
-            best_viol = torch.where(better, viol_try, best_viol)
-            Z = torch.where(finite[:, None, None], Z, best_Z)
+        kept = torch.zeros_like(max_viol, dtype=torch.long)
+        for k in range(cfg.eq_projection):
+            with trace.span("sqp.eq_projection.pass", k=k):
+                g_now, Gf, Bf, Cf = t.linearize(Z, sp, shared)
+                row_norm = torch.maximum(
+                    Gf.abs().amax(-1),
+                    torch.maximum(Bf.abs().amax(-1), Cf.abs().amax(-1)))
+                W = (eq_rows & (row_norm > 1e-8)).to(Z.dtype)
+                r = l_b[..., :md] - g_now[..., :md]
+                Z = Z + eq_project(Gf, Bf, Cf, P_diag, r, W,
+                                   factorizer=cfg.admm.factorizer,
+                                   base=cfg.admm.chol_base)
+                viol_try = _amax(_viol(t.evaluate(Z, sp, shared), l_b, u_b))
+                finite = torch.isfinite(viol_try)
+                better = finite & (viol_try <= best_viol)
+                best_Z = torch.where(better[:, None, None], Z, best_Z)
+                best_viol = torch.where(better, viol_try, best_viol)
+                kept = torch.where(better, k + 1, kept)
+                Z = torch.where(finite[:, None, None], Z, best_Z)
+        passes = torch.arange(cfg.eq_projection + 1, device=Z.device)
+        trace.tally("sqp.eq_projection.kept_pass",
+                    (kept[:, None] == passes).sum(0))
+        trace.tally("sqp.eq_projection.within_tol",
+                    (best_viol <= PRODUCTION_TOL).sum())
         return best_Z, best_viol
 
     def solve(self, state, stage_params, shared):

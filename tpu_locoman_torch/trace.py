@@ -19,7 +19,12 @@ Attrs are Python ints and strings, from shapes and the configuration;
 never a tensor value, whose read would synchronise with the device.
 
 The counters (``count``, ``counter``) are always on: one dict add per
-kernel launch.
+kernel launch. So are the tallies (``tally``, ``tallies``): device tensors
+added into a per-name accumulator on their own device, never read back in
+the tick (a few tiny kernels where a path calls them, nothing where it
+does not); ``tallies()`` reads every accumulator back once, outside the
+tick. Inside ``off()`` neither spans nor tallies record (an export's
+trace).
 
     from tpu_locoman_torch import trace
     trace.enable()
@@ -30,6 +35,7 @@ kernel launch.
     trace.export_chrome("spans.json")
 """
 
+import contextlib
 import functools
 import json
 import os
@@ -55,6 +61,8 @@ _spans = []
 _stack = []  # the open _Live spans, innermost last
 _next_id = 0
 _counters = {}
+_tallies = {}  # (name, device) -> accumulator on that device
+_tallying = True
 
 
 class _NoOp:
@@ -151,6 +159,18 @@ def enabled():
     return _on
 
 
+@contextlib.contextmanager
+def off():
+    """Spans and tallies off inside, whatever ``enable()`` said: an export
+    traces the step with fake tensors, which neither records."""
+    global _on, _tallying
+    on, _on, _tallying = _on, False, False
+    try:
+        yield
+    finally:
+        _on, _tallying = on, True
+
+
 def spans():
     """The closed spans, in the order they closed."""
     return list(_spans)
@@ -202,3 +222,43 @@ def counters():
 
 def reset_counters():
     _counters.clear()
+
+
+# ---------------------------------------------------------------------------
+# Tallies
+# ---------------------------------------------------------------------------
+
+def _add(a, b):
+    """a + b; of two histograms of other lengths (closers of other pass
+    counts in one process), the shorter is widened with zeros."""
+    if a.shape == b.shape:
+        return a + b
+    out = a.new_zeros(max(a.shape[0], b.shape[0]))
+    out[:a.shape[0]] += a
+    out[:b.shape[0]] += b
+    return out
+
+
+def tally(name, t):
+    """Add the tensor ``t`` (a count, or a histogram of counts) into the
+    accumulator ``name`` on ``t``'s device, without reading it back."""
+    if not _tallying:
+        return
+    key = (name, t.device)
+    acc = _tallies.get(key)
+    _tallies[key] = t.clone() if acc is None else _add(acc, t)
+
+
+def tallies():
+    """Every accumulator read back, summed over devices: name -> int, or a
+    list of ints for a histogram. It waits for the device: call it outside
+    the tick."""
+    out = {}
+    for (name, _), acc in _tallies.items():
+        acc = acc.cpu()
+        out[name] = acc if name not in out else _add(out[name], acc)
+    return {name: acc.tolist() for name, acc in out.items()}
+
+
+def reset_tallies():
+    _tallies.clear()
