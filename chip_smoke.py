@@ -83,8 +83,8 @@ Phases, one line each (any failure raises; exit code non-zero):
     its retraction, saved to bytes and loaded by a worker process started
     after phase 2 (minutes of host work that overlap phases 3-26), then,
     on the idle card, 3 ticks of the artifact against 3 eager ticks from
-    the same carry, with the artifact's launches (K1 15 and K2 1 per
-    flagship tick, K2 5 and K3 5 per accurate tick) and the export, load
+    the same carry, with the artifact's launches (K1 15, K2 1 and K4 2 per
+    flagship tick, K2 5, K3 5 and K4 1 per accurate tick) and the export, load
     and tick times; then (27b) the flagship and include_acc=False timed
     again with the workers gone, against phases 5 and 22;
 28. tpu_locoman_torch.dryrun.dryrun_multichip at the flagship's width,
@@ -99,7 +99,7 @@ Phases, one line each (any failure raises; exit code non-zero):
     its state;
 31. the reference-style factory: the flagship built by make_ocp on the
     default device against MPC(...) built directly, 3 ticks at batch 512
-    from the same carry (gap held at 0; K1 15 and K2 1 per tick), and the
+    from the same carry (gap held at 0; K1 15, K2 1 and K4 2 per tick), and the
     four other formulations through make_ocp with OCP_ARGS (class,
     arguments, sizes s and m against MPC's; 1 tick at batch 8 each);
 32. the flagship with nonzero ext_force_des and arm_vel_des, batch 512, 3
@@ -114,7 +114,12 @@ Phases, one line each (any failure raises; exit code non-zero):
     and one with a clock per scenario run under
     torch.cuda.set_sync_debug_mode("error"), which raises at any call that
     synchronises with the card;
-35. one JSON line with each kernel's error, times, bound and launch counts
+35. K4 (admm_sweeps) against the plain sweep loop on the flagship's
+    captured sweeps at batch 512, 4096 (tiled), 1 and 8: the error of each
+    against a float64 loop (K4's at most SOLVE_ERR_RATIO times the plain
+    loop's), a NaN kept in its scenario, and the device and call ms of
+    both beside the bound from the bytes a sweep reads;
+36. one JSON line with each kernel's error, times, bound and launch counts
     (per path under "path_launches").
 The bounds of 17, 18 and 21 are SPREAD_FACTOR times JAX against itself,
 and the gates of 19, 20 and 32 JAX's own violation widened by that (see
@@ -373,9 +378,10 @@ def artifact_ticks(step, carry, targets, dt, ticks, zeros):
     return carry, viol, ms
 
 
-# the exported paths of phase 27: label -> (launches (K1, K2, K3) per tick
-# of the artifact, batch)
-EXPORTS = {"flagship": ((15, 1, 0), 512), "accurate b1": ((0, 5, 5), 1)}
+# the exported paths of phase 27: label -> (launches (K1, K2, K3, K4) per
+# tick of the artifact, batch)
+EXPORTS = {"flagship": ((15, 1, 0, 2), 512),
+           "accurate b1": ((0, 5, 5, 1), 1)}
 
 
 def export_mpc(T, dev, label):
@@ -508,7 +514,8 @@ def phase_export(workers, workdir, timeout=1000):
             f"max_violation {g['max_violation']:.3g} (tol {EXPORT_TOL}); "
             f"artifact {ms_summary(r['artifact_ms'])} against eager "
             f"{ms_summary(r['eager_ms'])}; artifact launches K1 {la[0]} K2 "
-            f"{la[1]} K3 {la[2]}; retract artifact ({r['retract_bytes']} "
+            f"{la[1]} K3 {la[2]} K4 {la[3]}; retract artifact "
+            f"({r['retract_bytes']} "
             f"bytes) off by {r['retract_gap']:.3g}")
     return res, "[27 export, in worker processes] " + "; ".join(parts)
 
@@ -614,7 +621,7 @@ def phase_examples(dev):
         f"(0.55 +- 0.05); --dump {len(d['x'])} states, --viz scene "
         f"{np.asarray(scene['points']).shape} against the CPU's: max abs "
         f"{scene_gap:.3g} (tol 1e-5); launches K1 {launches[0]} K2 "
-        f"{launches[1]} K3 {launches[2]}")
+        f"{launches[1]} K3 {launches[2]} K4 {launches[3]}")
 
 
 def phase_ocp_native(dev):
@@ -676,7 +683,7 @@ def phase_make_ocp(dev, ship, batch=512, ticks=3):
     o = run_ticks(T.batched_step(mpc), T.batched_init(mpc, batch), target,
                   mpc.dt_min, 0, ticks)
     launches = read_launches()
-    check(launches == (15 * ticks, ticks, 0),
+    check(launches == (15 * ticks, ticks, 0, 2 * ticks),
           f"make_ocp flagship launches {launches}")
     # |direct - make_ocp| in x and Z after the ticks, and in the batch-mean
     # max_violation of the worst and the mean tick
@@ -692,9 +699,10 @@ def phase_make_ocp(dev, ship, batch=512, ticks=3):
     others = []
     tg8 = torch.zeros(8, 6, device=dev)
     tg8[:, 0] = torch.linspace(0.0, 0.3, 8, device=dev)
-    # per tick (K1, K2) launches of each formulation at batch 8 (phase 16)
-    expect = {"whole_body_aba": (18, 1), "whole_body_acc": (15, 1),
-              "centroidal_acc": (15, 0), "centroidal_vel": (15, 0)}
+    # per tick (K1, K2, K4) launches of each formulation at batch 8 (phase
+    # 16): K4 once for the QP's sweeps and once for the corrector's
+    expect = {"whole_body_aba": (18, 1, 2), "whole_body_acc": (15, 1, 2),
+              "centroidal_acc": (15, 0, 2), "centroidal_vel": (15, 0, 2)}
     for name, per_tick in expect.items():
         m = T.make_ocp(name, robot=robot, nodes=14, config=cfg)
         ref = T.MPC(robot, dynamics=name, nodes=14, config=cfg, device=dev)
@@ -707,8 +715,9 @@ def phase_make_ocp(dev, ship, batch=512, ticks=3):
               f"make_ocp {name}: sizes {(m.trans.s, m.trans.m)}")
         reset_launches()
         r = run_ticks(m.step, m.init_carry(8), tg8, m.dt_min, 0, 1)
-        got = read_launches()[:2]
-        check(got == per_tick, f"make_ocp {name} launches K1, K2 = {got}")
+        got = read_launches()
+        got = (got[0], got[1], got[3])
+        check(got == per_tick, f"make_ocp {name} launches K1, K2, K4 = {got}")
         if name == "whole_body_aba":
             k1_b8 = k1_at_mass_matrix(dev, robot, 8 * 14, seed=31)
         others.append(f"{name} {type(m.form).__name__}("
@@ -716,7 +725,7 @@ def phase_make_ocp(dev, ship, batch=512, ticks=3):
                                   for k in T.OCP_ARGS[name])
                       + f") s={m.trans.s} m={m.trans.m} violation "
                       f"{r['viol_mean']:.4f} status {r['status']} launches "
-                      f"K1 {got[0]} K2 {got[1]}")
+                      f"K1 {got[0]} K2 {got[1]} K4 {got[2]}")
         del m, ref, r
     return o["tick_ms"], launches, k1_b8, (
         f"[31 make_ocp] make_ocp(\"whole_body_rnea\", robot=B2G, nodes=14, "
@@ -726,7 +735,8 @@ def phase_make_ocp(dev, ship, batch=512, ticks=3):
         f"make_ocp {', '.join(f'{x:.2f}' for x in o['tick_ms'])}, direct "
         f"{', '.join(f'{x:.2f}' for x in d_ms)}; max_violation mean "
         f"{o['viol_mean']:.6g} (gate {VIOL_GATE}); launches K1 {launches[0]} "
-        f"K2 {launches[1]} K3 {launches[2]} over {ticks} ticks; with OCP_ARGS, "
+        f"K2 {launches[1]} K3 {launches[2]} K4 {launches[3]} over {ticks} "
+        f"ticks; with OCP_ARGS, "
         f"batch 8, 1 tick each (class, arguments and s, m equal to MPC's): "
         + "; ".join(others) + f"; K1 at whole_body_aba's batch-8 mass "
         f"matrices ({k1_b8['B']}, {k1_b8['s']}): max abs err "
@@ -787,7 +797,8 @@ def phase_targets(dev, ship, spreads, flat_ms, batch=512, ticks=3):
     r = run_ticks(lambda c, t, tg: mpc.step(c, t, tg, ext, arm),
                   T.batched_init(mpc, batch), target, mpc.dt_min, 0, ticks)
     launches = read_launches()
-    check(launches == (15 * ticks, ticks, 0), f"targets launches {launches}")
+    check(launches == (15 * ticks, ticks, 0, 2 * ticks),
+          f"targets launches {launches}")
     sv = spreads["survey_targets"]
     gate, rel = survey_gate(sv, GOLDEN_TARGETS)
     check(r["viol_mean"] <= gate,
@@ -861,6 +872,138 @@ def phase_surface(dev, E=512 * 14):
             + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
             + f"; so3_log_matrix(so3_exp_matrix(w)) - w on the card {trip:.3g}"
             f" (tol {SO3_LOG_TOL}, theta up to pi - 0.1)")
+
+
+def k4_inputs(dev, ship, batch=512, warm=2):
+    """The flagship's admm_solve sweeps (the first run_iters call) of the
+    tick after ``warm`` ticks at ``batch``: the QPWork on its real KKT
+    factor, q, l, u, the config, the warm start (x, z, y), the sweep count
+    and the box slots."""
+    import torch
+
+    import tpu_locoman_torch as T
+    from tpu_locoman_torch.solver import qp as tqp
+
+    mpc = hot_mpc(T, dev, ship["factorizer"], ship=ship)
+    step, carry = T.batched_step(mpc), T.batched_init(mpc, batch)
+    targets = torch.tensor([0.2, 0, 0, 0, 0, 0], device=dev).repeat(batch, 1)
+    for k in range(warm):
+        carry, _ = step(carry, k * mpc.dt_min, targets)
+    got, run = [], tqp.run_iters
+
+    def keep(*args):
+        got.append(args)
+        return run(*args)
+
+    tqp.run_iters = keep
+    try:
+        step(carry, warm * mpc.dt_min, targets)
+    finally:
+        tqp.run_iters = run
+    return got[0]
+
+
+def phase_k4(dev, ship):
+    """K4 (admm_sweeps) against the plain loop on the flagship's captured
+    sweeps (batch 512, tiled to 4096, cut to 1 and 8): x, z and y of one
+    call (10 sweeps) against the plain f32 loop (printed: two f32 orders of
+    the sums on KKT blocks with condition numbers near 3e9) and, at batch
+    1, 8 and 512, both against the plain loop in float64 (held: the
+    kernel's error at most SOLVE_ERR_RATIO times the plain loop's); a NaN in one scenario's factor
+    stays in that scenario; device and call ms of both beside the bound
+    from the bytes each sweep reads. Returns (rows by batch, line)."""
+    import torch
+
+    from tpu_locoman_torch.solver import admm_sweeps as k4
+    from tpu_locoman_torch.solver import qp as tqp
+
+    work, q, l, u, cfg, x, z, y, iters, box = k4_inputs(dev, ship)
+    check(isinstance(work.D, int), "the flagship's sweeps have no pattern")
+    Bs0, K, s = work.fac.Linv.shape[:3]
+    kv, md, m = work.fac.V.shape[-1], work.A.shape[2], work.rho_vec.shape[-1]
+    rows, outs = {}, {}
+    for Bs in (512, 4096, 1, 8):
+        if Bs >= Bs0:
+            f = lambda t: t.repeat((Bs // Bs0,) + (1,) * (t.dim() - 1))  # noqa: E731
+        else:
+            f = lambda t: t[:Bs].contiguous()  # noqa: E731
+        wk = tqp.QPWork(fac=type(work.fac)(*map(f, work.fac)), A=f(work.A),
+                        D=work.D, rho_vec=f(work.rho_vec))
+        vec = [f(t) for t in (q, l, u)]
+        start = [f(t) for t in (x, z, y)]
+
+        def kernel(wk=wk, vec=vec, start=start):
+            return k4.admm_sweeps(wk, *vec, cfg.sigma, cfg.alpha, *start,
+                                  iters, box)
+
+        def plain(wk=wk, vec=vec, start=start):
+            return tqp.sweeps_plain(wk, *vec, cfg.sigma, cfg.alpha, *start,
+                                    iters, box)
+
+        ok, op = kernel(), plain()
+        torch.cuda.synchronize()
+        row = {"Bs": Bs, "gap": max(
+            float((a - b).abs().max()) / (float(b.abs().max()) + 1.0)
+            for a, b in zip(ok, op))}
+        if Bs == 4096:
+            # the tiles are the same scenarios: the same bits as at 512
+            check(all(torch.equal(a.view((8, Bs0) + a.shape[1:]),
+                                  b.expand((8,) + b.shape))
+                      for a, b in zip(ok, outs[512])),
+                  "K4 at 4096 is not the tiled result at 512")
+        else:
+            d = lambda t: t.double()  # noqa: E731
+            w64 = tqp.QPWork(fac=type(wk.fac)(*map(d, wk.fac)), A=d(wk.A),
+                             D=wk.D, rho_vec=d(wk.rho_vec))
+            r64 = tqp.sweeps_plain(w64, *map(d, vec), cfg.sigma, cfg.alpha,
+                                   *map(d, start), iters, box)
+
+            def err(o):
+                return max(float((a.double() - r).abs().max())
+                           / float(r.abs().max()) for a, r in zip(o, r64))
+
+            row["err"], row["plain_err"] = err(ok), err(op)
+            check(row["err"] <= SOLVE_ERR_RATIO * row["plain_err"],
+                  f"K4 Bs={Bs}: error against float64 {row['err']} > "
+                  f"{SOLVE_ERR_RATIO} x the plain loop's {row['plain_err']}")
+        outs[Bs] = ok
+        row["t"] = times(torch, kernel, 20 if Bs <= 512 else 10)
+        row["plain"] = times(torch, plain, 10 if Bs <= 512 else 3)
+        row["bound_ms"] = Bs * iters * k4.sweep_bytes(
+            K, s, kv, md, m) / H100_BYTES_PER_S * 1e3
+        row["bound_plain_ms"] = Bs * iters * k4.sweep_bytes(
+            K, s, kv, md, m, once=False) / H100_BYTES_PER_S * 1e3
+        rows[Bs] = row
+        del wk, vec, start, ok, op
+    # a failed factorization in one scenario stays in that scenario
+    wk = tqp.QPWork(fac=type(work.fac)(*(t[:8].clone() for t in work.fac)),
+                    A=work.A[:8], D=work.D, rho_vec=work.rho_vec[:8])
+    wk.fac.Linv[1, 3, 5, 5] = float("nan")
+    xo = k4.admm_sweeps(wk, q[:8], l[:8], u[:8], cfg.sigma, cfg.alpha,
+                        x[:8], z[:8], y[:8], iters, box)[0]
+    check(bool(torch.isnan(xo[1]).any()) and bool(torch.isfinite(
+        xo[torch.arange(8, device=dev) != 1]).all()),
+          "K4 must keep a scenario's NaN in that scenario")
+    line = (f"[35 K4] admm_sweeps == plain loop on the flagship's captured "
+            f"sweeps ((K, s, kv, md, m) = ({K}, {s}, {kv}, {md}, {m}), "
+            f"{iters} sweeps, box rows {0 if box is None else box.numel()}): "
+            + "; ".join(
+                f"Bs={r['Bs']}: gap to the plain loop {r['gap']:.3g}"
+                + (f", error against float64 {r['err']:.3g} (plain "
+                   f"{r['plain_err']:.3g}, ratio tol {SOLVE_ERR_RATIO})"
+                   if "err" in r else ", the tiled result at 512 bit for bit")
+                + f"; device ms / call ms: kernel {r['t'][0]:.4f} / "
+                f"{r['t'][1]:.4f} ({1e3 * r['t'][0] / iters:.1f} us per "
+                f"sweep), plain {r['plain'][0]:.4f} / {r['plain'][1]:.4f}, "
+                f"bound {r['bound_ms']:.4f} (bytes read once; "
+                f"{100 * r['bound_ms'] / r['t'][0]:.1f}% of it) and "
+                f"{r['bound_plain_ms']:.4f} (Linv and A read twice, as the "
+                f"plain loop does; "
+                f"{100 * r['bound_plain_ms'] / r['t'][0]:.1f}%)"
+                for r in rows.values())
+            + "; NaN in one scenario's factor stays in it")
+    return rows, line
+
 
 
 def phase_sync_free(dev, ship, batch=512, warm=2):
@@ -975,26 +1118,30 @@ def profile_ticks(step, carry, target, dt, path, ticks=3):
 @contextlib.contextmanager
 def plain_kernels():
     """Swap the plain versions in for K2 (``rnea_derivs.rnea_derivatives``,
-    which the formulations and rbda.aba_derivatives call) and for K1 where
+    which the formulations and rbda.aba_derivatives call), for K1 where
     ``qp.chol_inv`` hands it a whole block (ABA's mass matrix; the
-    "cholinv" factorizer never calls it)."""
+    "cholinv" factorizer never calls it) and for K4 (``run_iters``'
+    sweeps)."""
     from tpu_locoman_torch import rnea_derivs
     from tpu_locoman_torch.solver import chol_base
     from tpu_locoman_torch.solver import qp as tqp
 
-    saved = rnea_derivs.rnea_derivatives, tqp.chol_inv_node
+    saved = (rnea_derivs.rnea_derivatives, tqp.chol_inv_node,
+             tqp.admm_sweeps)
     rnea_derivs.rnea_derivatives = rnea_derivs.rnea_derivatives_plain
     tqp.chol_inv_node = chol_base.chol_inv_node_plain
+    tqp.admm_sweeps = tqp.sweeps_plain
     try:
         yield
     finally:
-        rnea_derivs.rnea_derivatives, tqp.chol_inv_node = saved
+        (rnea_derivs.rnea_derivatives, tqp.chol_inv_node,
+         tqp.admm_sweeps) = saved
 
 
 def compare_paths(dev, ship, batch=8, ticks=3, dynamics="whole_body_rnea",
                   pair=("cholinv_pb", "cholinv"), plain=True, nodes=14,
                   robot=("B2G", {}), form_kwargs=None):
-    """The kernel path against the plain path (K1's and K2's plain
+    """The kernel path against the plain path (K1's, K2's and K4's plain
     versions swapped in) from the same carry; or, with plain=False, one
     factorizer against another (pair), both on the kernels. Returns (max
     |dx|, max normalized |dZ|) over the ticks, targets vx 0 to 0.3."""
@@ -1245,12 +1392,13 @@ def reset_launches():
 
 
 def read_launches():
-    """(K1, K2, K3) launches since reset_launches (the trace counters)."""
+    """(K1, K2, K3, K4) launches since reset_launches (the trace
+    counters)."""
     from tpu_locoman_torch import rnea_derivs, trace
-    from tpu_locoman_torch.solver import chol_base, fac_whole
+    from tpu_locoman_torch.solver import admm_sweeps, chol_base, fac_whole
 
     return tuple(trace.counter(m.LAUNCHES)
-                 for m in (chol_base, rnea_derivs, fac_whole))
+                 for m in (chol_base, rnea_derivs, fac_whole, admm_sweeps))
 
 
 def load_spreads():
@@ -1267,8 +1415,8 @@ def path_line(r, batch, launches, ticks):
     return (f"{ms_summary(r['tick_ms'])}; {batch * 1e3 / ms:.1f} solves/s; "
             f"max_violation mean {r['viol_mean']:.6g} worst tick "
             f"{r['viol_worst']:.4g}; status {r['status']}; launches K1 "
-            f"{launches[0]} K2 {launches[1]} K3 {launches[2]} over {ticks} "
-            f"ticks")
+            f"{launches[0]} K2 {launches[1]} K3 {launches[2]} K4 "
+            f"{launches[3]} over {ticks} ticks")
 
 
 def phase_sequential(dev, ship, spreads, batch=512, warm=2, timed=10):
@@ -1280,7 +1428,8 @@ def phase_sequential(dev, ship, spreads, batch=512, warm=2, timed=10):
     r, _ = run_flagship(dev, dict(ship, factorizer="sequential"), batch, warm,
                         timed)
     launches, ticks = read_launches(), warm + timed
-    check(launches == (0, ticks, 0), f"sequential launches {launches}")
+    check(launches == (0, ticks, 0, 2 * ticks),
+          f"sequential launches {launches}")
     check(r["viol_mean"] <= VIOL_GATE,
           f"sequential violation mean {r['viol_mean']} > {VIOL_GATE}")
     sp = spreads["flagship"]
@@ -1309,7 +1458,10 @@ def phase_n30(dev, ship, spreads, batch=512, warm=1, timed=5):
         r, _ = run_flagship(dev, dict(ship, factorizer=fz), batch, warm,
                             timed, nodes=30)
         launches, ticks = read_launches(), warm + timed
-        check(launches == (0, ticks, 0), f"N=30 {fz} launches {launches}")
+        # the cyclic factor keeps the plain sweeps (no K4)
+        k4_per_tick = 2 if fz == "sequential" else 0
+        check(launches == (0, ticks, 0, k4_per_tick * ticks),
+              f"N=30 {fz} launches {launches}")
         check(r["viol_mean"] <= VIOL_GATE,
               f"N=30 {fz} violation mean {r['viol_mean']} > {VIOL_GATE}")
         runs[fz] = (r, launches)
@@ -1381,7 +1533,8 @@ def phase_scaled(dev, spreads, batch=512, ticks=5):
     reset_launches()
     r, _ = run_flagship(dev, SCALED_SHIP, batch, 0, ticks)
     launches = read_launches()
-    check(launches == (30 * ticks, 2 * ticks, 0),
+    # Ruiz scaling makes D dense: the plain sweeps, no K4
+    check(launches == (30 * ticks, 2 * ticks, 0, 0),
           f"scaled launches {launches}")
     sv = spreads["survey_scaled"]
     gate, rel = survey_gate(sv, GOLDEN_SCALED)
@@ -1404,7 +1557,8 @@ def phase_b2(dev, ship, spreads, batch=512, warm=2, timed=10):
     r, _ = run_flagship(dev, ship, batch, warm, timed,
                         robot=("B2", {"payload": "front"}))
     launches, ticks = read_launches(), warm + timed
-    check(launches == (15 * ticks, ticks, 0), f"B2 launches {launches}")
+    check(launches == (15 * ticks, ticks, 0, 2 * ticks),
+          f"B2 launches {launches}")
     sv = spreads["survey_b2"]
     gate, rel = survey_gate(sv, GOLDEN_B2)
     check(r["viol_mean"] <= gate, f"B2 violation mean {r['viol_mean']} > "
@@ -1487,27 +1641,30 @@ def phase_parity(dev):
         f"{float(np.mean(tick_s)) * 1e3:.1f} ms/tick mean, "
         f"{float(np.median(tick_s)) * 1e3:.1f} p50; max_violation mean "
         f"{v.mean():.3g} worst tick {v.max():.3g}; launches K1 {launches[0]} "
-        f"K2 {launches[1]} K3 {launches[2]}; max abs err (bound = "
+        f"K2 {launches[1]} K3 {launches[2]} K4 {launches[3]}; max abs err "
+        f"(bound = "
         f"{SPREAD_FACTOR:g} x JAX's against the same reference, held where "
         f"at most {PARITY_SCALE_SHARE:g} of its scale) " + "; ".join(parts))
 
 #: the variant phases: case -> (phase, what, dynamics, robot, formulation
-#: keyword arguments, (K1, K2) launches per tick). K2 runs where the JAX
+#: keyword arguments, (K1, K2, K4) launches per tick). K2 runs where the JAX
 #: package's rnea_ad does: in include_acc=False's RNEA rows, once per
 #: linearize through rnea_ad's forward-mode rule; whole_body_acc with
 #: include_base=False takes its base acceleration from crba,
 #: nonlinear_effects and the frame Jacobians (no K2), and the Euler base's
-#: RNEA derivatives come from AD over the plain recursion (no K2)
+#: RNEA derivatives come from AD over the plain recursion (no K2). K4 runs
+#: the QP's and the corrector's sweeps where C is the propagation pattern:
+#: include_acc=False has none (a dense D, the plain sweeps)
 VARIANTS = {
     "rnea_noacc": ("22", "whole_body_rnea(include_acc=False)",
                    "whole_body_rnea", ("B2G", {}), {"include_acc": False},
-                   (15, 1)),
+                   (15, 1, 0)),
     "acc_nobase": ("23", "whole_body_acc(include_base=False)",
                    "whole_body_acc", ("B2G", {}), {"include_base": False},
-                   (15, 0)),
+                   (15, 0, 2)),
     "euler": ("24", "B2G(use_quaternion=False) whole_body_rnea",
               "whole_body_rnea", ("B2G", {"use_quaternion": False}), {},
-              (15, 0)),
+              (15, 0, 2)),
 }
 #: phase 25's kernel-path-against-plain-path runs: (label, dynamics, robot,
 #: formulation keyword arguments)
@@ -1541,8 +1698,8 @@ def phase_variant(dev, ship, spreads, name, flagship_ms, batch=512, warm=2,
                           robot=robot, form_kwargs=fkw)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     launches, ticks = read_launches(), warm + timed
-    check(launches == (per_tick[0] * ticks, per_tick[1] * ticks, 0),
-          f"{name} launches {launches}")
+    check(launches == (per_tick[0] * ticks, per_tick[1] * ticks, 0,
+                       per_tick[2] * ticks), f"{name} launches {launches}")
     check(mpc.trans.split_ok == (name == "euler"),
           f"{name}: split linearize {mpc.trans.split_ok}")
     sv = spreads["survey_" + name]
@@ -1599,7 +1756,8 @@ def phase_variant_paths(dev, ship, mpc, carry):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = read_launches()
-    check(launches == (0, 1, 0), f"whole-stage linearize launches {launches}")
+    check(launches == (0, 1, 0, 0),
+          f"whole-stage linearize launches {launches}")
     with plain_kernels():
         ref = mpc.trans.linearize(Z, sp, sh)
     errs = {}
@@ -1711,7 +1869,7 @@ def main():
 
 
 def run(args, stack):
-    """Phases 1-35; ``stack`` ends the export workers and their files."""
+    """Phases 1-36; ``stack`` ends the export workers and their files."""
     import numpy as np
     import torch
 
@@ -1879,12 +2037,14 @@ def run(args, stack):
     batch, warm, timed = 512, 2, 20
     reset_launches()
     fl, _ = run_flagship(dev, ship, batch, warm, timed)
-    k1_launches, k2_launches, k3_flag = read_launches()
+    k1_launches, k2_launches, k3_flag, k4_flag = read_launches()
     ticks = warm + timed
     # one K1 launch per node of the one factorization per tick (N+1 = 15)
     check(k1_launches == 15 * ticks, f"K1 launches {k1_launches}")
     check(k2_launches == ticks, f"K2 launches {k2_launches}")
     check(k3_flag == 0, f"K3 launches {k3_flag}")
+    # one K4 launch for the QP's sweeps and one for the corrector's
+    check(k4_flag == 2 * ticks, f"K4 launches {k4_flag}")
     check(fl["viol_mean"] <= VIOL_GATE,
           f"violation mean {fl['viol_mean']} > {VIOL_GATE}")
     tick_ms = fl["tick_ms"]
@@ -1897,7 +2057,7 @@ def run(args, stack):
         f"{batch * 1e3 / ms_mean:.1f} solves/s; max_violation mean "
         f"{fl['viol_mean']:.4f} worst tick {fl['viol_worst']:.4f} (gate "
         f"{VIOL_GATE}); status {fl['status']}; launches K1 {k1_launches} "
-        f"K2 {k2_launches} over {ticks} ticks; host load average "
+        f"K2 {k2_launches} K4 {k4_flag} over {ticks} ticks; host load average "
         f"{os.getloadavg()[0]:.2f} on {os.cpu_count()} cores")
 
     def batched_ticks(dynamics, factorizer=ship["factorizer"],
@@ -1989,14 +2149,15 @@ def run(args, stack):
                     acc_mpc.dt_min, warm, timed)
     acc_launches = read_launches()
     ticks = warm + timed
-    check(acc_launches == (0, 5 * ticks, 5 * ticks),
-          f"accurate path launches K1, K2, K3 = {acc_launches}")
+    check(acc_launches == (0, 5 * ticks, 5 * ticks, ticks),
+          f"accurate path launches K1, K2, K3, K4 = {acc_launches}")
     check(acc["viol_mean"] <= ACC_GATE,
           f"accurate violation mean {acc['viol_mean']} > {ACC_GATE}")
     reset_launches()
     _, outs = acc_mpc.run(10, target)
     run_launches = read_launches()
-    check(run_launches == (0, 50, 50), f"MPC.run launches {run_launches}")
+    check(run_launches == (0, 50, 50, 10),
+          f"MPC.run launches {run_launches}")
     for k_, x in outs.items():
         check(bool(torch.isfinite(x.float()).all()), f"MPC.run: non-finite {k_}")
     run_viol = float(outs["max_violation"].mean())
@@ -2005,10 +2166,12 @@ def run(args, stack):
         f"with factorizer pallas: {ms_summary(acc['tick_ms'])}; max_violation "
         f"mean {acc['viol_mean']:.3g} worst tick {acc['viol_worst']:.3g} "
         f"(gate {ACC_GATE}); status {acc['status']}; launches K1 "
-        f"{acc_launches[0]} K2 {acc_launches[1]} K3 {acc_launches[2]} over "
+        f"{acc_launches[0]} K2 {acc_launches[1]} K3 {acc_launches[2]} K4 "
+        f"{acc_launches[3]} over "
         f"{ticks} ticks; MPC.run(10): max_violation mean {run_viol:.3g}, "
         f"status {outs['status'].flatten().tolist()}, launches K1 "
-        f"{run_launches[0]} K2 {run_launches[1]} K3 {run_launches[2]}")
+        f"{run_launches[0]} K2 {run_launches[1]} K3 {run_launches[2]} K4 "
+        f"{run_launches[3]}")
     del acc_mpc
 
     def accurate_ticks():
@@ -2028,9 +2191,8 @@ def run(args, stack):
     ticks = warm + timed
     prod_launches = read_launches()
     # K1: 15 nodes in prepare and 14 in each of four eq_project passes
-    check(prod_launches[0] == 71 * ticks and prod_launches[1] == 5 * ticks
-          and prod_launches[2] == 0,
-          f"accurate batch 512 launches K1, K2, K3 = {prod_launches}")
+    check(prod_launches == (71 * ticks, 5 * ticks, 0, ticks),
+          f"accurate batch 512 launches K1, K2, K3, K4 = {prod_launches}")
     check(prod["viol_mean"] <= ACC_GATE,
           f"accurate batch 512 violation mean {prod['viol_mean']}")
     prod_ms = float(np.mean(prod["tick_ms"]))
@@ -2039,7 +2201,8 @@ def run(args, stack):
         f"max_violation mean {prod['viol_mean']:.3g} worst tick "
         f"{prod['viol_worst']:.3g} (gate {ACC_GATE}); status "
         f"{prod['status']}; launches per tick K1 {prod_launches[0] // ticks} "
-        f"K2 {prod_launches[1] // ticks} K3 {prod_launches[2] // ticks}")
+        f"K2 {prod_launches[1] // ticks} K3 {prod_launches[2] // ticks} K4 "
+        f"{prod_launches[3] // ticks}")
 
     # ---- 11. factorizers against each other -----------------------------------
     fz, fz_solve = compare_factorizers(dev, ship, ("pallas", "babe_pb"),
@@ -2135,8 +2298,8 @@ def run(args, stack):
     # K1 per tick: the 15 node blocks of the factorization, and ABA's mass
     # matrix once in linearize, once for all line-search trials and once
     # in the corrector's evaluation
-    check(ab_launches == (18 * ticks, ticks, 0),
-          f"whole_body_aba launches K1, K2, K3 = {ab_launches}")
+    check(ab_launches == (18 * ticks, ticks, 0, 2 * ticks),
+          f"whole_body_aba launches K1, K2, K3, K4 = {ab_launches}")
     check(ab["viol_mean"] <= VIOL_GATE,
           f"whole_body_aba violation mean {ab['viol_mean']} > {VIOL_GATE}")
     reset_launches()
@@ -2155,8 +2318,8 @@ def run(args, stack):
         f"max_violation mean {ab['viol_mean']:.4f} worst tick "
         f"{ab['viol_worst']:.4f} (gate {VIOL_GATE}); status {ab['status']}; "
         f"launches K1 {ab_launches[0]} K2 {ab_launches[1]} K3 "
-        f"{ab_launches[2]} over {ticks} ticks; MPC.retract: K1 "
-        f"{ret_launches[0]} K2 {ret_launches[1]}, finite")
+        f"{ab_launches[2]} K4 {ab_launches[3]} over {ticks} ticks; "
+        f"MPC.retract: K1 {ret_launches[0]} K2 {ret_launches[1]}, finite")
     del ab_mpc, ret
     profiles.append(("14b", "three whole_body_aba ticks",
                      f"{args.profile}.aba", ab_ms,
@@ -2179,15 +2342,17 @@ def run(args, stack):
         reset_launches()
         mpc = hot_mpc(T, dev, "cholinv_pb", ship=ship, dynamics=name)
         r = run_ticks(mpc.step, mpc.init_carry(8), tg8, mpc.dt_min, 0, 3)
-        launches = read_launches()[:2]
-        check(launches == (15 * 3, k2_per_tick * 3),
-              f"{name} launches K1, K2 = {launches}")
+        launches = read_launches()
+        launches = (launches[0], launches[1], launches[3])
+        check(launches == (15 * 3, k2_per_tick * 3, 2 * 3),
+              f"{name} launches K1, K2, K4 = {launches}")
         ret = mpc.retract(r["carry"].solver_state.Z, r["carry"].x_init)
         for k_, x in ret.items():
             check(bool(torch.isfinite(x).all()), f"{name} retract: {k_}")
         others.append(f"{name} max_violation mean {r['viol_mean']:.4f} worst "
                       f"tick {r['viol_worst']:.4f}, status {r['status']}, "
-                      f"launches K1 {launches[0]} K2 {launches[1]}")
+                      f"launches K1 {launches[0]} K2 {launches[1]} K4 "
+                      f"{launches[2]}")
     ex, ez = compare_paths(dev, ship, batch=8, ticks=3,
                            dynamics="whole_body_acc")
     check(ex <= 1e-3 and ez <= 1e-3,
@@ -2252,6 +2417,10 @@ def run(args, stack):
     plog(phase_surface(dev))
     plog(phase_sync_free(dev, ship, batch))
 
+    # ---- 35. K4 against the plain sweeps -----------------------------------
+    k4_rows, line = phase_k4(dev, ship)
+    plog(line)
+
     for tag, what, path, tick_ms, ticks_of in (profiles if args.profile
                                                 else []):
         dev_ms, n_k, wall = profile_ticks(*ticks_of(), path)
@@ -2260,11 +2429,11 @@ def run(args, stack):
              f"{tick_ms:.2f} without (idle {100 * (1 - dev_ms / tick_ms):.1f}%"
              f" of the unprofiled tick)")
 
-    # ---- 35. kernels ------------------------------------------------------------
+    # ---- 36. kernels ------------------------------------------------------------
     k3_main = next(r for r in k3_rows if (r["K"], r["Bs"]) == (14, 1))
     k2_main = k2_rows["B2G 7168"]
-    # (K1, K2, K3) launches of every path's driven run
-    paths = {"flagship": (k1_launches, k2_launches, k3_flag),
+    # (K1, K2, K3, K4) launches of every path's driven run
+    paths = {"flagship": (k1_launches, k2_launches, k3_flag, k4_flag),
              "accurate_b1": acc_launches, "accurate_b512": prod_launches,
              "whole_body_aba": ab_launches, "sequential": sq_launches,
              "n30_sequential": n30["sequential"][1],
@@ -2378,6 +2547,24 @@ def run(args, stack):
          "at": "Bs=1 K=14 s=110; launches: accurate single robot, 22 ticks",
          "path_launches": per_path(2),
          "aba": {"launches": ab_launches[2]}},
+        {"name": "admm_sweeps", "route": "cuda",
+         "source": "tpu_locoman_torch/csrc/admm_sweeps.cu",
+         "replaces": "none: run_iters' sweep loop, which XLA fused "
+                     "(tpu_locoman/solver/qp.py)",
+         "launches": k4_flag, "max_rel_err_f64": k4_rows[512]["err"],
+         "plain_rel_err_f64": k4_rows[512]["plain_err"],
+         "ms": k4_rows[512]["t"][0], "plain_ms": k4_rows[512]["plain"][0],
+         "bound_ms": k4_rows[512]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "call_ms": k4_rows[512]["t"][1],
+         "plain_call_ms": k4_rows[512]["plain"][1],
+         "at": "Bs=512 K=15 s=105, 10 sweeps; launches: flagship, 22 ticks",
+         "path_launches": per_path(3),
+         **{f"b{Bs}": {"ms": r["t"][0], "call_ms": r["t"][1],
+                       "plain_ms": r["plain"][0],
+                       "plain_call_ms": r["plain"][1],
+                       "bound_ms": r["bound_ms"],
+                       "bound_plain_ms": r["bound_plain_ms"]}
+            for Bs, r in k4_rows.items() if Bs != 512}},
     ]
     log(json.dumps({"kernels": kernels}))
     log(smi)

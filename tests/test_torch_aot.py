@@ -5,8 +5,9 @@ one export of the step and one of the retraction per module.
 The loaded artifact must compute the eager step: it runs the same ATen
 operations and the same custom ops in the same order, so the bound is
 1e-5 (measured on the CPU: 0 in x, Z and max_violation over 3 ticks). The
-graph holds K1 and K2 as the custom ops ``tpu_locoman_torch::chol_inv_node``
-and ``::rnea_derivs`` (their CPU implementation here), and tracing leaves
+graph holds K1, K2 and K4 as the custom ops
+``tpu_locoman_torch::chol_inv_node``, ``::rnea_derivs`` and
+``::admm_sweeps`` (their CPU implementation here), and tracing leaves
 no fake tensor in the live MPC. JAX's own artifact is held against the
 port's in tests/test_torch_aot_jax.py."""
 
@@ -54,6 +55,7 @@ def test_artifact_bytes_and_kernel_ops(exported):
            if n.op == "call_function"}
     assert "tpu_locoman_torch.chol_inv_node.default" in ops
     assert "tpu_locoman_torch.rnea_derivs.default" in ops
+    assert "tpu_locoman_torch.admm_sweeps.default" in ops
 
 
 def test_loaded_step_equals_eager_step(exported):

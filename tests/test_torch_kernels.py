@@ -319,11 +319,13 @@ def test_build_key_is_stable(tmp_path):
     from tpu_locoman_torch import _build
 
     srcs = _build._sources()
-    assert [s.rsplit("/", 1)[-1] for s in srcs] == ["chol_inv_node.cu",
+    assert [s.rsplit("/", 1)[-1] for s in srcs] == ["admm_sweeps.cu",
+                                                    "chol_inv_node.cu",
                                                     "chol_tile.cuh",
                                                     "fac_whole.cu",
                                                     "rnea_derivs.cu"]
-    assert set(_build._SIGNATURES) == {"chol_inv_node_launch",
+    assert set(_build._SIGNATURES) == {"admm_sweeps_launch",
+                                       "chol_inv_node_launch",
                                        "fac_whole_launch",
                                        "rnea_derivs_launch"}
     assert _build._digest(srcs) == _build._digest(list(srcs))

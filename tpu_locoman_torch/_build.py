@@ -35,10 +35,13 @@ build_log = ""
 
 _C_VOID = ctypes.c_void_p
 _C_INT = ctypes.c_int
+_C_FLOAT = ctypes.c_float
 _SIGNATURES = {
     "chol_inv_node_launch": [_C_VOID, _C_VOID, _C_INT, _C_INT, _C_VOID],
     "rnea_derivs_launch": [_C_VOID] * 17 + [_C_INT] * 8 + [_C_VOID],
     "fac_whole_launch": [_C_VOID] * 5 + [_C_INT] * 3 + [_C_VOID],
+    "admm_sweeps_launch": ([_C_VOID] * 15 + [_C_INT] * 9 + [_C_FLOAT] * 3
+                           + [_C_VOID]),
 }
 
 

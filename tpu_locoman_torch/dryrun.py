@@ -85,7 +85,7 @@ def worker(rank, world, address, backend, device, config):
     import torch.distributed as dist
 
     from . import distributed, parallel
-    from .solver import chol_base, fac_whole
+    from .solver import admm_sweeps, chol_base, fac_whole
     from . import rnea_derivs, trace
 
     if device == "cuda":
@@ -108,7 +108,8 @@ def worker(rank, world, address, backend, device, config):
         trace.reset_counters()
         carries, stats, ms = _ticks(mpc, carries, local_t, TICKS)
         launches = tuple(trace.counter(m.LAUNCHES)
-                         for m in (chol_base, rnea_derivs, fac_whole))
+                         for m in (chol_base, rnea_derivs, fac_whole,
+                                   admm_sweeps))
         x_sh = parallel.gather(carries.x_init, sh)
         mv = stats["max_violation"]
         total = mv.sum().reshape(1)
@@ -118,7 +119,8 @@ def worker(rank, world, address, backend, device, config):
         print(f"rank {rank}: world {n}, mesh {tuple(mesh.shape)}, scenarios "
               f"{sh.slice(batch).start}:{sh.slice(batch).stop}, "
               f"ticks {', '.join(f'{x:.2f}' for x in ms)} ms, launches K1 "
-              f"{launches[0]} K2 {launches[1]} K3 {launches[2]}, global mean "
+              f"{launches[0]} K2 {launches[1]} K3 {launches[2]} K4 "
+              f"{launches[3]}, global mean "
               f"violation {mean:.8f}",
               flush=True)
         mv_sh = parallel.gather(mv, sh)

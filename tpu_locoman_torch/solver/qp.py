@@ -14,9 +14,11 @@ scaling path and the equality-polish phase, and the accurate-mode closers
 ``kkt_polish`` and ``eq_project``. Every tensor carries the scenario axis
 first: G (Bs, N, m, ndx), P_diag (Bs, N+1, s), ...
 
-The recursion's panel products (CPU path), the Schur updates and the ADMM
-sweeps are plain batched products (left to XLA in the JAX package, to
-cuBLAS here).
+The recursion's panel products (CPU path) and the Schur updates are plain
+batched products (left to XLA in the JAX package, to cuBLAS here); so are
+the ADMM sweeps on the BABE and cyclic factors and with a dense D. On a
+BlockTridiagFactor with the propagation pattern a ``run_iters`` call's
+sweeps are one launch of kernel K4 on the card (``admm_sweeps.py``).
 Not ported: bf16 storage of the matvec operator and of the factor (the
 port computes in float32 only; the reference records both as diverging or
 not worth it).
@@ -27,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from .. import trace
+from .admm_sweeps import admm_sweeps
 from .blocked import (CyclicFactor, chol_blocked, factorize_cyclic,
                       solve_cyclic, tri_inverse_lower)
 from .chol_base import (MAX_S, chol_base_unrolled, chol_inv_base_plain,
@@ -586,20 +589,33 @@ def prepare(G, B, C, P_diag, l, u, cfg, box_idx=None, rho_vec=None,
 
 
 def run_iters(work, q, l, u, cfg, x, z, y, iters, box_idx=None):
-    """Fixed-count ADMM sweeps on prepared data (OSQP splitting)."""
+    """Fixed-count ADMM sweeps on prepared data (OSQP splitting). A
+    BlockTridiagFactor with the propagation pattern (an int D) takes the
+    K4 op (``admm_sweeps``: one launch on the card, the plain loop on CPU
+    tensors); the BABE and cyclic factors and a dense D take the plain loop
+    on any device. The span's ``path`` says which."""
+    fused = (isinstance(work.fac, BlockTridiagFactor)
+             and isinstance(work.D, int))
+    with trace.span("qp.sweeps", iters=iters,
+                    path="kernel" if fused else "plain"):
+        sweeps = admm_sweeps if fused else sweeps_plain
+        return sweeps(work, q, l, u, cfg.sigma, cfg.alpha, x, z, y, iters,
+                      box_idx)
+
+
+def sweeps_plain(work, q, l, u, sigma, alpha, x, z, y, iters, box_idx=None):
+    """The sweeps as plain batched products, on any factor and D."""
     rho = work.rho_vec
     solve = _solver_for(work.fac)
-    with trace.span("qp.sweeps", iters=iters):
-        for _ in range(iters):
-            rhs = cfg.sigma * x - q + _At_matvec(work.A, work.D, rho * z - y,
-                                                 box_idx)
-            x_t = solve(work.fac, rhs)
-            z_t = _A_matvec(work.A, work.D, x_t, box_idx)
-            x_new = cfg.alpha * x_t + (1.0 - cfg.alpha) * x
-            z_relax = cfg.alpha * z_t + (1.0 - cfg.alpha) * z
-            z_new = torch.clamp(z_relax + y / rho, min=l, max=u)
-            y = y + rho * (z_relax - z_new)
-            x, z = x_new, z_new
+    for _ in range(iters):
+        rhs = sigma * x - q + _At_matvec(work.A, work.D, rho * z - y, box_idx)
+        x_t = solve(work.fac, rhs)
+        z_t = _A_matvec(work.A, work.D, x_t, box_idx)
+        x_new = alpha * x_t + (1.0 - alpha) * x
+        z_relax = alpha * z_t + (1.0 - alpha) * z
+        z_new = torch.clamp(z_relax + y / rho, min=l, max=u)
+        y = y + rho * (z_relax - z_new)
+        x, z = x_new, z_new
     return x, z, y
 
 
