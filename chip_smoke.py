@@ -1119,23 +1119,32 @@ def profile_ticks(step, carry, target, dt, path, ticks=3):
 def plain_kernels():
     """Swap the plain versions in for K2 (``rnea_derivs.rnea_derivatives``,
     which the formulations and rbda.aba_derivatives call), for K1 where
-    ``qp.chol_inv`` hands it a whole block (ABA's mass matrix; the
-    "cholinv" factorizer never calls it) and for K4 (``run_iters``'
-    sweeps)."""
+    ``chol_base.chol_inv`` hands it a whole block (ABA's mass matrix; the
+    "cholinv" factorizer never calls it) and for K4 (the op that
+    ``qp.run_iters`` calls). Raises if K1, K2 or K4 launched inside all
+    the same: a swap that missed its seam would hold a kernel to itself."""
     from tpu_locoman_torch import rnea_derivs
     from tpu_locoman_torch.solver import chol_base
     from tpu_locoman_torch.solver import qp as tqp
 
-    saved = (rnea_derivs.rnea_derivatives, tqp.chol_inv_node,
-             tqp.admm_sweeps)
-    rnea_derivs.rnea_derivatives = rnea_derivs.rnea_derivatives_plain
-    tqp.chol_inv_node = chol_base.chol_inv_node_plain
-    tqp.admm_sweeps = tqp.sweeps_plain
+    seams = ((rnea_derivs, "rnea_derivatives",
+              rnea_derivs.rnea_derivatives_plain),
+             (chol_base, "chol_inv_node", chol_base.chol_inv_node_plain),
+             (tqp, "admm_sweeps", tqp.sweeps_plain))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in seams]
+    for mod, name, plain in seams:
+        setattr(mod, name, plain)
+    before = read_launches()
     try:
         yield
     finally:
-        (rnea_derivs.rnea_derivatives, tqp.chol_inv_node,
-         tqp.admm_sweeps) = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    after = read_launches()
+    ran = {k: after[i] - before[i] for k, i in (("K1", 0), ("K2", 1),
+                                                ("K4", 3))}
+    check(not any(ran.values()),
+          f"plain_kernels: kernels launched inside the swap: {ran}")
 
 
 def compare_paths(dev, ship, batch=8, ticks=3, dynamics="whole_body_rnea",

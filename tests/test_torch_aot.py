@@ -11,6 +11,7 @@ graph holds K1, K2 and K4 as the custom ops
 no fake tensor in the live MPC. JAX's own artifact is held against the
 port's in tests/test_torch_aot_jax.py."""
 
+import functools
 import os
 
 import numpy as np
@@ -19,10 +20,12 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+import torch.utils._pytree as pytree  # noqa: E402
 from torch._subclasses.fake_tensor import FakeTensor  # noqa: E402
+from torch.fx.experimental.proxy_tensor import make_fx  # noqa: E402
 
 import tpu_locoman_torch as T  # noqa: E402
-from tpu_locoman_torch import aot  # noqa: E402
+from tpu_locoman_torch import aot, rbda  # noqa: E402
 
 B, TICKS, TOL = 2, 3, 1e-5
 TARGETS = np.array([[0.2, 0, 0, 0, 0, 0], [0.1, 0, 0, 0, 0, 0.2]],
@@ -77,25 +80,73 @@ def test_loaded_step_equals_eager_step(exported):
     assert isinstance(ca, T.MPCCarry)
 
 
+def _store(owner):
+    """The entries of ``owner``'s per-device constants (model.device_consts),
+    by key."""
+    return owner.__dict__.get("_device_consts", {})
+
+
 def _cached_tensors(mpc):
-    """Every tensor in the per-device caches: the model's, and the host
-    constants of the transcription, the formulation and the gait."""
-    caches = list(mpc.form.model.__dict__.get("_tensor_cache", {}).values())
-    for owner in (mpc.trans, mpc.form, mpc.gait):
-        caches += [c if isinstance(c, dict) else dict(enumerate(c)) for c in
-                   owner.__dict__.get("_device_consts", {}).values()]
-    out = []
-    for cache in caches:
-        for v in cache.values():
-            out += [x for x in (v if isinstance(v, tuple) else (v,))
-                    if isinstance(x, torch.Tensor)]
-    return out
+    """Every tensor in the per-device constants of the model, the
+    transcription, the formulation and the gait."""
+    return [x for owner in (mpc.form.model, mpc.trans, mpc.form, mpc.gait)
+            for entry in _store(owner).values()
+            for x in pytree.tree_leaves(entry) if isinstance(x, torch.Tensor)]
 
 
 def test_export_leaves_no_fake_tensor_in_the_model(exported):
     mpc = exported[0]
     tensors = _cached_tensors(mpc)
     assert tensors and not any(isinstance(x, FakeTensor) for x in tensors)
+
+
+def test_constants_built_in_the_trace_equal_their_eager_build(exported):
+    """The export builds the constants its trace first needs inside the
+    fake trace: each entry is a real tensor equal to the same entry built
+    by an eager tick of a fresh MPC."""
+    mpc, eager = exported[0], _mpc()
+    eager.step(eager.init_carry(B), 0.0, torch.tensor(TARGETS))
+    for owner, ref in ((mpc.form.model, eager.form.model),
+                       (mpc.trans, eager.trans), (mpc.form, eager.form),
+                       (mpc.gait, eager.gait)):
+        assert set(_store(ref)) <= set(_store(owner)), type(owner).__name__
+        for key, entry in _store(ref).items():
+            got, want = (pytree.tree_leaves(e)
+                         for e in (_store(owner)[key], entry))
+            assert len(got) == len(want), key
+            for g, w in zip(got, want):
+                if isinstance(w, torch.Tensor):
+                    assert type(g) is torch.Tensor and torch.equal(g, w), key
+
+
+def test_constant_first_built_in_a_fake_trace_is_real():
+    """A constant first needed inside make_fx's fake trace (the model's
+    tensors, its local inertias and a frame's placement, none built
+    before) is stored as a real tensor equal to its eager build, and the
+    traced graph computes what the eager call does."""
+    model, ref = T.Go2().model, T.Go2().model
+    frame = next(iter(model.frames))
+
+    def fn(model, R, p):
+        I_w = rbda.world_inertias(model, R, p)
+        return I_w, rbda.frame_placement(model, frame, R, p)[1]
+
+    g = torch.Generator().manual_seed(0)
+    n = model.n_links
+    R = torch.linalg.qr(torch.randn(2, n, 3, 3, generator=g))[0]
+    p = torch.randn(2, n, 3, generator=g)
+    assert not _store(model)
+    with torch.no_grad():
+        gm = make_fx(functools.partial(fn, model), tracing_mode="fake",
+                     _allow_non_fake_inputs=True)(R, p)
+        want = fn(ref, R, p)
+    assert set(_store(model)) == set(_store(ref)) and _store(model)
+    for key, entry in _store(ref).items():
+        for g_, w in zip(pytree.tree_leaves(_store(model)[key]),
+                         pytree.tree_leaves(entry)):
+            assert type(g_) is torch.Tensor and torch.equal(g_, w), key
+    for a, b in zip(gm(R, p), want):
+        assert torch.equal(a, b)
 
 
 def test_artifact_file_holds_the_returned_bytes(exported):

@@ -145,12 +145,11 @@ def _float64_model(name, ee):
     for fname in ee:
         tr._frame_consts(m, fname, "cpu")
     tr.local_inertias(m, "cpu")
-    cache = m.tensors("cpu")
-    for key, x in list(cache.items()):
-        if isinstance(x, tuple):
-            cache[key] = tuple(y.double() for y in x)
-        elif x.is_floating_point():
-            cache[key] = x.double()
+    store = m.__dict__["_device_consts"]  # model.device_consts' entries
+    for key, entry in list(store.items()):
+        store[key] = torch.utils._pytree.tree_map_only(
+            torch.Tensor,
+            lambda x: x.double() if x.is_floating_point() else x, entry)
     return m
 
 

@@ -1,8 +1,11 @@
 """The port imports without JAX: its package never imports jax or
 tpu_locoman, and a batched MPC tick runs on the CPU in a process where
 importing jax fails. Also: the port's entry points default to the card,
-and its copies of the robot specs equal the JAX package's files."""
+its copies of the robot specs equal the JAX package's files, and its
+solver layers import downward only (each kernel module holds its plain
+version; the QP layer above them is imported by sqp alone)."""
 
+import ast
 import json
 import os
 import re
@@ -157,3 +160,61 @@ def test_native_builds_outside_native_dir(tmp_path):
     lib = out.stdout.strip().splitlines()[-1]
     assert lib.startswith(str(tmp_path / "tpu_locoman_torch" / "_build"))
     assert os.path.exists(lib)
+
+
+SOLVER = "tpu_locoman_torch.solver"
+#: the solver's layers below qp.py: K1, K3 and K4 with their plain
+#: versions, and the library factorizations
+BELOW_QP = ("chol_base.py", "fac_whole.py", "admm_sweeps.py", "blocked.py")
+
+
+def _imports(rel):
+    """(module, inside a function) of every import in the port's file
+    ``rel``; a ``from M import n`` names both M and M.n (n may be a
+    module), relative imports resolved against the file's package."""
+    package = "tpu_locoman_torch." + os.path.dirname(rel).replace("/", ".")
+    package = package.rstrip(".")
+    tree = ast.parse(open(os.path.join(PKG, rel)).read())
+    inner = {id(n) for f in ast.walk(tree)
+             if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+             for n in ast.walk(f) if n is not f}
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                parts = package.split(".")[:len(package.split("."))
+                                             - node.level + 1]
+                base = ".".join(parts + ([base] if base else []))
+            mods = [base] + [f"{base}.{a.name}" for a in node.names]
+        else:
+            continue
+        out += [(m, id(node) in inner) for m in mods]
+    return out
+
+
+@pytest.mark.parametrize("name", BELOW_QP)
+def test_kernel_layers_import_neither_qp_nor_sqp(name):
+    up = {m for m, _ in _imports("solver/" + name)} & {
+        f"{SOLVER}.qp", f"{SOLVER}.sqp"}
+    assert not up, f"solver/{name} reaches up to {sorted(up)}"
+
+
+@pytest.mark.parametrize("name", BELOW_QP + ("qp.py",))
+def test_no_import_inside_a_function_among_the_qp_layers(name):
+    """The wrappers' lazy load of the kernel library (``_build``) is the
+    one import left inside a function."""
+    inner = {m for m, inside in _imports("solver/" + name)
+             if inside and not m.startswith("tpu_locoman_torch._build")}
+    assert not inner, f"solver/{name} imports {sorted(inner)} in a function"
+
+
+def test_only_sqp_imports_qp():
+    rels = ["rbda.py"] + ["solver/" + f
+                          for f in os.listdir(os.path.join(PKG, "solver"))
+                          if f.endswith(".py")]
+    importers = {rel for rel in rels
+                 if f"{SOLVER}.qp" in {m for m, _ in _imports(rel)}}
+    assert importers == {"solver/sqp.py", "solver/__init__.py"}

@@ -9,11 +9,12 @@ explicit scenario axis at a fixed batch B:
          arm_vel_des (B, 3)) -> (carry, max_violation (B,))
     retract(Z (B, N+1, s), x_init (B, nx)) -> (q, v, a, forces, tau)
 
-The three kernels enter the program as the custom ops
-``tpu_locoman_torch::chol_inv_node``, ``::rnea_derivs`` and ``::fac_whole``
-(their CPU implementation the plain version, their CUDA implementation the
-kernel), so a program exported on the card launches them when it runs.
-The program runs on the device of the ``MPC`` it was exported from.
+The four kernels enter the program as the custom ops
+``tpu_locoman_torch::chol_inv_node``, ``::rnea_derivs``, ``::fac_whole``
+and ``::admm_sweeps`` (their CPU implementation the plain version, their
+CUDA implementation the kernel), so a program exported on the card
+launches them when it runs. The program runs on the device of the ``MPC``
+it was exported from.
 
 How it is traced: ``make_fx`` in fake mode first takes the step to ATen
 operations, ``torch.func`` transforms included, and ``torch.export`` then
@@ -23,10 +24,11 @@ maps under ``rbda.integrate_tangent_map``'s jvp and in the centroidal
 ``dyn_linearize``'s vjp) is not traced: its fake value is baked into the
 graph as a constant and the program computes something else. Fake mode
 raises on any branch that depends on a tensor's value, so the artifact
-cannot hold a decision taken for the example inputs. Before the trace
-every per-device cache of the model is filled with real tensors
-(``_fill_caches``), so that tracing leaves no fake tensor behind in the
-live ``MPC``; a trace that writes a cache all the same raises. Exporting
+cannot hold a decision taken for the example inputs. The host values the
+step reads as device tensors come from one store (``model.device_consts``),
+which builds an entry outside the trace's fake and proxy modes: an entry
+first needed during the trace holds real tensors, enters the graph as a
+constant and stays in the live ``MPC`` as if built before. Exporting
 launches nothing on the device.
 """
 
@@ -38,8 +40,9 @@ from torch.fx.experimental.proxy_tensor import make_fx
 
 from .mpc import MPCCarry
 from .solver import SolverState
-from .solver import chol_base, fac_whole  # noqa: F401  (the ops)
-from . import rbda, rnea_derivs, trace
+# the solver's ops come with the package (qp imports them); rbda imports
+# rnea_derivs, K2's op, only inside its functions
+from . import rnea_derivs, trace  # noqa: F401
 
 # the pytree nodes that cross the ABI need serialized names (once per
 # process), as the JAX package registers them for jax.export
@@ -49,38 +52,8 @@ for _t in (SolverState, MPCCarry):
             _t, serialized_type_name=f"tpu_locoman_torch.{_t.__name__}")
 
 
-def _fill_caches(mpc):
-    """Fill the lazily filled per-device caches on the MPC's device (the
-    model's tensors, the local spatial inertias, every frame's placement,
-    K2's tree table for the formulation's force frames, and the host
-    constants of the transcription, the formulation and the gait)."""
-    model, dev = mpc.form.model, mpc.device
-    rbda.local_inertias(model, dev)
-    for name in model.frames:
-        rbda._frame_consts(model, name, dev)
-    rnea_derivs._topology(model, tuple(mpc.form.ee_frames), dev)
-    mpc.trans.consts(dev)
-    mpc.form.consts(dev)
-    mpc.gait.periods(dev)
-
-
-def _cache_keys(mpc):
-    """(owner, device, key) of every entry of the per-device caches."""
-    model = mpc.form.model
-    keys = {("model", d, k)
-            for d, c in model.__dict__.get("_tensor_cache", {}).items()
-            for k in c}
-    for owner in (mpc.trans, mpc.form, mpc.gait):
-        keys |= {(type(owner).__name__,) + k
-                 for k in owner.__dict__.get("_device_consts", {})}
-    return keys
-
-
-def _export(mpc, fn, args, path):
-    """Trace ``fn`` at ``args`` (the caches filled first), export,
-    serialize."""
-    _fill_caches(mpc)
-    keys = _cache_keys(mpc)
+def _export(fn, args, path):
+    """Trace ``fn`` at ``args``, export, serialize."""
     # recording a stack trace per node is a third of the trace's time
     # (torch 2.13 has the switch, 2.11 does not)
     emit = getattr(torch.fx.config, "do_not_emit_stack_traces", None)
@@ -91,10 +64,6 @@ def _export(mpc, fn, args, path):
         with torch.no_grad(), trace.off():
             gm = make_fx(fn, tracing_mode="fake",
                          _allow_non_fake_inputs=True)(*args)
-            added = _cache_keys(mpc) - keys
-            if added:
-                raise RuntimeError(f"the trace filled model caches "
-                                   f"{sorted(added)}: fill them first")
             # drops the autograd engine's unused shape checks of the vjps
             gm.graph.eliminate_dead_code()
             gm.recompile()
@@ -130,7 +99,7 @@ def export_mpc_step(mpc, batch, path=None):
                                     arm_vel_des)
         return new_carry, stats["max_violation"]
 
-    return _export(mpc, step, _step_args(mpc, batch), path)
+    return _export(step, _step_args(mpc, batch), path)
 
 
 def export_retract(mpc, batch, num_steps=3, path=None):
@@ -145,7 +114,7 @@ def export_retract(mpc, batch, num_steps=3, path=None):
     dev = mpc.device
     args = (torch.zeros(batch, mpc.nodes + 1, mpc.trans.s, device=dev),
             mpc.x_nom().expand(batch, -1).clone())
-    return _export(mpc, retract, args, path)
+    return _export(retract, args, path)
 
 
 def load_artifact(data_or_path):

@@ -95,7 +95,7 @@ class Formulation:
         ("f_front", "f_rear"), the reference configuration ("q0") and the
         nonlinear dynamics rows ("dyn_nl_idx", where the formulation has
         them)."""
-        return device_consts(self, self._make_consts, device)
+        return device_consts(self, "consts", self._make_consts, device)
 
     def _make_consts(self, device):
         c = {"f_front": torch.tensor([0.0, 0.0, 0.8], device=device),

@@ -44,10 +44,10 @@ class GaitSequence:
         """The gait and swing periods as 0-dim tensors, made once per device
         and dtype."""
         return device_consts(
-            self, lambda dev, dt: tuple(
-                torch.tensor(p, dtype=dt, device=dev)
+            self, ("periods", dtype), lambda dev: tuple(
+                torch.tensor(p, dtype=dtype, device=dev)
                 for p in (self.gait_period, self.swing_period)),
-            device, dtype)
+            device)
 
     def get_gait_schedule(self, t_current, dts):
         """Contact (0/1) and swing-phase schedules, both (..., nodes, 4).

@@ -12,6 +12,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 GRAVITY = 9.81
 
@@ -33,15 +34,21 @@ def device_key(device):
     return device
 
 
-def device_consts(owner, build, device, *key):
-    """``build(device, *key)``, made once per device (and key) and kept on
-    ``owner``: the host values that a call reads, as tensors on the device
-    the call runs on, so that the call copies nothing from the host."""
-    key = (device_key(device),) + key
+def device_consts(owner, name, build, device):
+    """``build(device)``, made once per device and kept on ``owner`` under
+    (device, ``name``): the host values that a call reads, as tensors on
+    the device the call runs on, so that the call copies nothing from the
+    host. It is the port's one store of such constants. An entry is built
+    outside any active dispatch mode, so that one first needed while
+    ``make_fx`` traces in fake mode (an export) holds real tensors, as if
+    it had been built before the trace."""
+    key = (device_key(device), name)
     cache = owner.__dict__.setdefault("_device_consts", {})
-    if key not in cache:
-        cache[key] = build(*key)
-    return cache[key]
+    entry = cache.get(key)
+    if entry is None:
+        with _disable_current_modes():
+            entry = cache[key] = build(key[0])
+    return entry
 
 
 @dataclass
@@ -106,37 +113,35 @@ class RobotModel:
         return np.array([0] * 6 + list(range(1, self.n_links)), dtype=np.int64)
 
     def tensors(self, device):
-        """Float32 copies of the numeric arrays on ``device`` (cached), and
-        the tree's index constants, so that no call copies from the host:
-        ``dof_link`` (nv,) int64, ``DM`` = ``anc[dof_link]`` (nv, nv) and
-        the spatial gravity acceleration ``g_spatial`` (6,)."""
-        device = device_key(device)
-        cache = self.__dict__.setdefault("_tensor_cache", {})
-        key = str(device)
-        if key not in cache:
-            f32 = lambda x: torch.as_tensor(  # noqa: E731
-                np.asarray(x, dtype=np.float32), device=device)
-            skews = []
-            for ax in np.asarray(self.axis, dtype=np.float32):
-                x, y, z = ax
-                skews.append(np.array([[0.0, -z, y], [z, 0.0, -x],
-                                       [-y, x, 0.0]], dtype=np.float32))
-            K = f32(np.stack(skews))
-            cache[key] = {
-                "R_tree": f32(self.R_tree),
-                "p_tree": f32(self.p_tree),
-                "axis": f32(self.axis),
-                "mass": f32(self.mass),
-                "com": f32(self.com),
-                "inertia": f32(self.inertia),
-                "axis_skew": K,
-                "axis_skew2": K @ K,
-                "anc": f32(self.ancestry_mask()),
-                "dof_link": torch.as_tensor(self.dof_link(), device=device),
-                "DM": f32(self.ancestry_mask()[self.dof_link()]),
-                "g_spatial": f32([0.0, 0.0, GRAVITY, 0.0, 0.0, 0.0]),
-            }
-        return cache[key]
+        """Float32 copies of the numeric arrays on ``device`` (made once per
+        device), and the tree's index constants, so that no call copies
+        from the host: ``dof_link`` (nv,) int64, ``DM`` = ``anc[dof_link]``
+        (nv, nv) and the spatial gravity acceleration ``g_spatial`` (6,)."""
+        return device_consts(self, "tensors", self._make_tensors, device)
+
+    def _make_tensors(self, device):
+        f32 = lambda x: torch.as_tensor(  # noqa: E731
+            np.asarray(x, dtype=np.float32), device=device)
+        skews = []
+        for ax in np.asarray(self.axis, dtype=np.float32):
+            x, y, z = ax
+            skews.append(np.array([[0.0, -z, y], [z, 0.0, -x],
+                                   [-y, x, 0.0]], dtype=np.float32))
+        K = f32(np.stack(skews))
+        return {
+            "R_tree": f32(self.R_tree),
+            "p_tree": f32(self.p_tree),
+            "axis": f32(self.axis),
+            "mass": f32(self.mass),
+            "com": f32(self.com),
+            "inertia": f32(self.inertia),
+            "axis_skew": K,
+            "axis_skew2": K @ K,
+            "anc": f32(self.ancestry_mask()),
+            "dof_link": torch.as_tensor(self.dof_link(), device=device),
+            "DM": f32(self.ancestry_mask()[self.dof_link()]),
+            "g_spatial": f32([0.0, 0.0, GRAVITY, 0.0, 0.0, 0.0]),
+        }
 
 
 def model_to_dict(model):

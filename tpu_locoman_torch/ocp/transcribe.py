@@ -140,7 +140,7 @@ class Transcription:
         ("C_pat") and the box limits ("q_min", "q_max", "v_max", "tau_max",
         "inf") as tensors on ``device``, made once per device: a tick
         copies nothing from the host."""
-        return device_consts(self, self._make_consts, device)
+        return device_consts(self, "consts", self._make_consts, device)
 
     def _make_consts(self, device):
         robot = self.form.robot

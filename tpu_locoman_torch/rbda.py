@@ -24,6 +24,8 @@ import torch
 from . import lie
 from .lie import integrate_q, skew  # noqa: F401  (re-exported)
 from .model import GRAVITY  # noqa: F401  (re-exported)
+from .model import device_consts
+from .solver.chol_base import chol_inv
 
 
 def mv(M, x):
@@ -196,13 +198,12 @@ def fk_vel(model, q, v):
 
 
 def _frame_consts(model, frame_name, device):
+    """(parent joint, the frame's placement (R, p) on ``device``)."""
     fr = model.frames[frame_name]
-    key = ("_frame", frame_name)
-    cache = model.tensors(device)
-    if key not in cache:
-        cache[key] = (torch.as_tensor(fr.R, dtype=torch.float32, device=device),
-                      torch.as_tensor(fr.p, dtype=torch.float32, device=device))
-    return fr.parent_joint, cache[key]
+    return fr.parent_joint, device_consts(
+        model, ("frame", frame_name), lambda dev: tuple(
+            torch.as_tensor(x, dtype=torch.float32, device=dev)
+            for x in (fr.R, fr.p)), device)
 
 
 def frame_placement(model, frame_name, R_w, p_w):
@@ -418,17 +419,18 @@ def _force_transform(R, p):
 
 
 def local_inertias(model, device):
-    """(n, 6, 6) spatial inertias in the joint frames, [lin, ang]."""
-    T = model.tensors(device)
-    key = "_I_loc"
-    if key not in T:
+    """(n, 6, 6) spatial inertias in the joint frames, [lin, ang] (made
+    once per device)."""
+    def build(device):
+        T = model.tensors(device)
         m = T["mass"][:, None, None]
         C = lie.skew(T["com"])
         eye = torch.eye(3, device=device)
         top = torch.cat([m * eye, -m * C], -1)
         bot = torch.cat([m * C, T["inertia"] - m * (C @ C)], -1)
-        T[key] = torch.cat([top, bot], -2)
-    return T[key]
+        return torch.cat([top, bot], -2)
+
+    return device_consts(model, "local_inertias", build, device)
 
 
 def world_inertias(model, R_w, p_w):
@@ -507,12 +509,10 @@ def crba(model, q):
 
 def _mass_factor(M):
     """Linv (..., nv, nv) with Linv^T Linv = (M + 1e-6 I)^-1: one
-    ``solver.qp.chol_inv`` over the whole flat batch, so one launch of
-    kernel K1 on a CUDA tensor. The jitter is the JAX package's: the
+    ``solver.chol_base.chol_inv`` over the whole flat batch, so one launch
+    of kernel K1 on a CUDA tensor. The jitter is the JAX package's: the
     explicit-inverse solve loses ~cond(M)^2 in f32 near singular
     configurations."""
-    from .solver.qp import chol_inv
-
     nv = M.shape[-1]
     eye = torch.eye(nv, dtype=M.dtype, device=M.device)
     S = (M + 1e-6 * eye).reshape(-1, nv, nv)

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from . import rbda, trace
+from .model import device_consts
 from .rbda import cross, motion_cross, motion_cross_star
 
 #: trace counter of the kernel launches made by ``derivative_pass`` (the
@@ -287,18 +288,14 @@ def pack_table(tab, ee_joint):
 
 
 def _topology(model, ee_frames, device):
-    """(TreeTable, the packed table on ``device``), cached per robot and
-    force frames beside the model's tensors."""
-    cache = model.tensors(device)
-    key = ("_k2_topo", tuple(ee_frames))
-    if key not in cache:
-        if "_k2_tree" not in cache:
-            cache["_k2_tree"] = tree_table(model.parent)
-        tab = cache["_k2_tree"]
+    """(TreeTable, the packed table on ``device``), made once per robot,
+    force frames and device."""
+    def build(device):
+        tab = tree_table(model.parent)
         ee_joint = [model.frames[fn].parent_joint for fn in ee_frames]
-        cache[key] = (tab, torch.as_tensor(pack_table(tab, ee_joint),
-                                           device=device))
-    return cache[key]
+        return tab, torch.as_tensor(pack_table(tab, ee_joint), device=device)
+
+    return device_consts(model, ("k2_table", tuple(ee_frames)), build, device)
 
 
 _sm_count = {}  # SMs per CUDA device index

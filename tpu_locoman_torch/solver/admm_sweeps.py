@@ -18,9 +18,12 @@ and A twice (3.58 MB). See ``sweep_bytes``.
 
 ``admm_sweeps`` calls the custom op ``tpu_locoman_torch::admm_sweeps`` on
 both devices, so that an exported program (``aot.py``) holds it as one
-node: its CPU implementation is the plain version, the loop of
-``qp.sweeps_plain``; its CUDA implementation launches the kernel or
-raises.
+node: its CPU implementation is the plain version, its CUDA implementation
+launches the kernel or raises. The plain version is here: the sweep loop
+``sweep_loop`` on ``fac_whole.solve_factorized``, with the stage matvecs
+``_A_matvec`` and ``_At_matvec``. ``qp.run_iters`` runs the same loop on
+the factors the kernel does not take (BABE, cyclic, a dense D), with
+their own solves.
 """
 
 import ctypes
@@ -29,6 +32,8 @@ from typing import Optional
 import torch
 
 from .. import trace
+from .blocked import _bmv
+from .fac_whole import BlockTridiagFactor, solve_factorized
 
 #: trace counter of the kernel launches made by ``admm_sweeps`` (the CUDA
 #: path only)
@@ -75,13 +80,55 @@ def sweep_bytes(K, s, kv, md, m, once=True):
     return 4 * (blocks + 3 * K * s + 7 * N * m)
 
 
+def _A_matvec(A, D, X, box_idx=None):
+    """w_i = A_i s_i + D_i s_{i+1} (+ box selector rows); X (Bs, N+1, s).
+    D is the int k of the propagation pattern (a slice) or dense."""
+    out = _bmv(A, X[:, :-1])
+    if isinstance(D, int):
+        out = out.clone()
+        out[..., :D] += X[:, 1:, :D]
+    else:
+        out = out + _bmv(D, X[:, 1:])
+    if box_idx is not None:
+        out = torch.cat([out, X[:, :-1][..., box_idx]], dim=-1)
+    return out
+
+
+def _At_matvec(A, D, W, box_idx=None):
+    """X_i = A_i^T w_i + D_{i-1}^T w_{i-1}; W (Bs, N, m_all)."""
+    Bs, N, md, s = A.shape
+    out = W.new_zeros(Bs, N + 1, s)
+    out[:, :-1] += _bmv(A.transpose(-1, -2), W[..., :md])
+    if isinstance(D, int):
+        out[:, 1:, :D] += W[..., :D]
+    else:
+        out[:, 1:] += _bmv(D.transpose(-1, -2), W[..., :md])
+    if box_idx is not None:
+        out[:, :-1, box_idx] += W[..., md:]
+    return out
+
+
+def sweep_loop(solve, fac, A, D, rho, q, l, u, sigma, alpha, x, z, y, iters,
+               box_idx=None):
+    """``iters`` ADMM sweeps (OSQP splitting) as plain batched products,
+    with ``solve(fac, rhs)`` the factor's solve of M x = rhs."""
+    for _ in range(iters):
+        rhs = sigma * x - q + _At_matvec(A, D, rho * z - y, box_idx)
+        x_t = solve(fac, rhs)
+        z_t = _A_matvec(A, D, x_t, box_idx)
+        x_new = alpha * x_t + (1.0 - alpha) * x
+        z_relax = alpha * z_t + (1.0 - alpha) * z
+        z_new = torch.clamp(z_relax + y / rho, min=l, max=u)
+        y = y + rho * (z_relax - z_new)
+        x, z = x_new, z_new
+    return x, z, y
+
+
 def admm_sweeps_plain(Linv, W, V, A, D, box_idx, rho, q, l, u, x, z, y,
                       sigma, alpha, iters):
-    """Plain PyTorch version: ``run_iters``' loop on the factor."""
-    from .qp import BlockTridiagFactor, QPWork, sweeps_plain
-
-    work = QPWork(fac=BlockTridiagFactor(Linv, W, V), A=A, D=D, rho_vec=rho)
-    return sweeps_plain(work, q, l, u, sigma, alpha, x, z, y, iters, box_idx)
+    """Plain PyTorch version: the sweep loop on the factor (Linv, W, V)."""
+    return sweep_loop(solve_factorized, BlockTridiagFactor(Linv, W, V), A, D,
+                      rho, q, l, u, sigma, alpha, x, z, y, iters, box_idx)
 
 
 def _check(Linv, W, V, A, D, box_idx, rho, q, l, u, x, z, y, iters):

@@ -16,10 +16,12 @@ What bounds it on an H100: bytes, 2 s^2 floats moved per block against
 ``chol_inv_node`` calls the custom op ``tpu_locoman_torch::chol_inv_node``
 on both devices, so that an exported program (``aot.py``) holds it as one
 node: its CPU implementation is the plain version, its CUDA implementation
-launches the kernel or raises. The plain version is the recursion with its
-plain leaves, ``qp.chol_inv(S, base, "torch")``; its leaves
-(``chol_base_unrolled``, ``tri_inv_doubling``) are ports of the TPU
-kernel's algorithm.
+launches the kernel or raises. The plain version is here: the recursive
+2x2 block Cholesky ``chol_inv(S, base, "torch")`` with its plain leaves
+(``chol_base_unrolled``, ``tri_inv_doubling``, ports of the TPU kernel's
+algorithm). ``chol_inv(..., "kernel")`` hands each block of width <=
+``MAX_S`` to the op; the factorizations (``fac_whole.factorize``) and
+ABA's mass matrix (``rbda``) call it.
 """
 
 import ctypes
@@ -78,12 +80,57 @@ def chol_inv_base_plain(S):
     return tri_inv_doubling(L, dinv)
 
 
+def _split(s):
+    """Size of the leading block of chol_inv's 2x2 split of an s x s block."""
+    return (s + 1) // 2
+
+
+def kernel_blocks(s):
+    """Sizes of the blocks, in order, that chol_inv(base_impl="kernel")
+    hands to one K1 launch each on a CUDA tensor of width s: s itself up to
+    MAX_S, else the 2x2 recursion's blocks down to widths <= MAX_S."""
+    if s <= MAX_S:
+        return [s]
+    k = _split(s)
+    return kernel_blocks(k) + kernel_blocks(s - k)
+
+
+def chol_inv(S, base=16, base_impl="torch"):
+    """(L, Linv) of SPD blocks (..., s, s) by recursive 2x2 block Cholesky.
+
+    base_impl="kernel" materializes only Linv (L is None). It hands every
+    block of width <= MAX_S (112) whole to the K1 op (``chol_inv_node``),
+    recursing only above that (``kernel_blocks``). On a CUDA tensor that
+    is one K1 launch, so ``base`` (``ADMMConfig.chol_base``) does not
+    shape the factorization there: the factor is the same up to f32
+    roundoff. On a CPU tensor the op recurses to leaves s <= base and
+    computes them in plain torch, as base_impl="torch" does."""
+    s = S.shape[-1]
+    if base_impl == "kernel" and s <= MAX_S:
+        return None, chol_inv_node(S, base)
+    if s <= base:
+        if base_impl == "kernel":
+            return None, chol_inv_base_plain(S)
+        L, dinv = chol_base_unrolled(S)
+        return L, tri_inv_doubling(L, dinv)
+    k = _split(s)
+    L1, L1i = chol_inv(S[..., :k, :k], base, base_impl)
+    L21 = S[..., k:, :k] @ L1i.transpose(-1, -2)
+    S2 = S[..., k:, k:] - L21 @ L21.transpose(-1, -2)
+    L2, L2i = chol_inv(S2, base, base_impl)
+    B21 = -(L2i @ L21 @ L1i)
+    zer = S.new_zeros(S.shape[:-2] + (k, s - k))
+    L = None
+    if L1 is not None and L2 is not None:
+        L = torch.cat([torch.cat([L1, zer], -1), torch.cat([L21, L2], -1)], -2)
+    Linv = torch.cat([torch.cat([L1i, zer], -1), torch.cat([B21, L2i], -1)], -2)
+    return L, Linv
+
+
 def chol_inv_node_plain(S, base=16):
     """Plain PyTorch version of the kernel: the recursive 2x2 block
     Cholesky with plain leaves (s <= base; the kernel's split points at
     the default 16)."""
-    from .qp import chol_inv
-
     return chol_inv(S, base, "torch")[1]
 
 

@@ -29,14 +29,21 @@ Splitting a scenario over a cluster of CTAs is later work.
 ``factorize_whole`` calls the custom op ``tpu_locoman_torch::fac_whole`` on
 both devices, so that an exported program (``aot.py``) holds it as one
 node: its CPU implementation is the plain version, its CUDA implementation
-launches the kernel or raises.
+launches the kernel or raises. The plain version is here:
+``factorize(chol_impl="cholinv")``, the node-by-node factorization that
+also serves the "cholinv", "cholinv_pb" and "sequential" factorizers (the
+node blocks by ``chol_base.chol_inv`` or ``blocked.chol_blocked``), with
+the factor ``BlockTridiagFactor`` and its solve ``solve_factorized``.
 """
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from .. import trace
+from .blocked import _bmv, chol_blocked, tri_inverse_lower
+from .chol_base import chol_inv
 
 #: trace counter of the kernel launches made by ``factorize_whole`` (the
 #: CUDA path only)
@@ -47,11 +54,75 @@ LAUNCHES = "kernels.fac_whole.launches"
 MAX_S = 112
 
 
+class BlockTridiagFactor(NamedTuple):
+    """Linv (Bs, N+1, s, s), W (Bs, N+1, s, s) with W_0 = 0,
+    V (Bs, N+1, s, k) with V_N = 0 (see the JAX docstring)."""
+
+    Linv: torch.Tensor
+    W: torch.Tensor
+    V: torch.Tensor
+
+
+def factorize(H, U, chol_impl="cholinv_pb", base=16, u_cols=None):
+    """Blocked Cholesky of the tridiagonal M, node by node.
+    H (Bs, N+1, s, s), U (Bs, N, s, k).
+
+    chol_impl: "cholinv" / "cholinv_pb" the recursive chol_inv (leaves in
+    plain torch / the whole node in K1 on the card), "blocked" the panel
+    Cholesky and the doubling triangular inverse (the "sequential"
+    factorizer). u_cols: the count k of U's live columns, when only
+    U[..., :k] is nonzero."""
+    if chol_impl not in ("cholinv", "cholinv_pb", "blocked"):
+        raise ValueError(f"unknown chol_impl {chol_impl!r}")
+    base_impl = "kernel" if chol_impl == "cholinv_pb" else "torch"
+    Bs, K, s = H.shape[0], H.shape[1], H.shape[2]
+    k = U.shape[-1] if u_cols is None else u_cols
+    U = U[..., :k]
+    eye = 1e-6 * torch.eye(s, dtype=H.dtype, device=H.device)
+    prev_F = H.new_zeros(Bs, s, k)
+    Linvs, Fs = [], []
+    for i in range(K):
+        S = H[:, i].clone()
+        S[:, :k, :k] -= prev_F.transpose(-1, -2) @ prev_F
+        S = S + eye
+        if chol_impl == "blocked":
+            Linv_i = tri_inverse_lower(chol_blocked(S))
+        else:
+            _, Linv_i = chol_inv(S, base, base_impl)
+        F_i = (Linv_i @ U[:, i] if i < K - 1 else H.new_zeros(Bs, s, k))
+        Linvs.append(Linv_i)
+        Fs.append(F_i)
+        prev_F = F_i
+    Linv = torch.stack(Linvs, dim=1)
+    F = torch.stack(Fs, dim=1)
+    F_prev = torch.cat([F.new_zeros(Bs, 1, s, k), F[:, :-1]], dim=1)
+    W = Linv[..., :k] @ F_prev.transpose(-1, -2)
+    V = Linv.transpose(-1, -2) @ F
+    return BlockTridiagFactor(Linv=Linv, W=W, V=V)
+
+
+def solve_factorized(fac, b):
+    """Solve M x = b, b (Bs, N+1, s)."""
+    K = b.shape[1]
+    Pb = _bmv(fac.Linv, b)
+    y = torch.zeros_like(b[:, 0])
+    Y = []
+    for i in range(K):
+        y = Pb[:, i] - _bmv(fac.W[:, i], y)
+        Y.append(y)
+    T = _bmv(fac.Linv.transpose(-1, -2), torch.stack(Y, dim=1))
+    kv = fac.V.shape[-1]
+    x = torch.zeros_like(b[:, 0])
+    X = [None] * K
+    for i in range(K - 1, -1, -1):
+        x = T[:, i] - _bmv(fac.V[:, i], x[:, :kv])
+        X[i] = x
+    return torch.stack(X, dim=1)
+
+
 def factorize_whole_plain(H, U):
     """Plain PyTorch version: the same recurrence with the recursive
     ``chol_inv`` of ``factorize(chol_impl="cholinv")``."""
-    from .qp import factorize
-
     return factorize(H, U, chol_impl="cholinv")
 
 
@@ -106,6 +177,4 @@ def _(H, U):
 
 def factorize_whole(H, U):
     """BlockTridiagFactor of H (Bs, K, s, s) and U (Bs, K-1, s, s)."""
-    from .qp import BlockTridiagFactor
-
     return BlockTridiagFactor(*torch.ops.tpu_locoman_torch.fac_whole(H, U))

@@ -2,23 +2,26 @@
 
 PyTorch counterpart of ``tpu_locoman/solver/qp.py``: ``assemble_blocks``
 (the propagation-pattern C with skinny couplings, or a general C with a
-dense D), the recursive ``chol_inv`` (on the card: each node block whole in
-one launch of kernel K1), ``factorize`` ("cholinv", "cholinv_pb" and the
-panel Cholesky of "blocked", the "sequential" factorizer), the
-whole-horizon factorization of kernel K3 (``factorizer="pallas"``,
-``fac_whole.py``), the two-chain BABE factorizer, block cyclic reduction
-(``factorizer="cyclic"``, ``blocked.py``), ``solve_factorized`` /
-``solve_babe`` / ``solve_cyclic``, the box-row matvecs, Ruiz
-equilibration, ``prepare`` / ``run_iters`` / ``admm_solve`` with the
-scaling path and the equality-polish phase, and the accurate-mode closers
-``kkt_polish`` and ``eq_project``. Every tensor carries the scenario axis
-first: G (Bs, N, m, ndx), P_diag (Bs, N+1, s), ...
+dense D), the two-chain BABE factorizer and its solve, Ruiz
+equilibration, the factorizer dispatch, ``prepare`` / ``run_iters`` /
+``admm_solve`` with the scaling path and the equality-polish phase, and
+the accurate-mode closers ``kkt_polish`` and ``eq_project``. Every tensor
+carries the scenario axis first: G (Bs, N, m, ndx), P_diag (Bs, N+1, s),
+...
 
-The recursion's panel products (CPU path) and the Schur updates are plain
-batched products (left to XLA in the JAX package, to cuBLAS here); so are
-the ADMM sweeps on the BABE and cyclic factors and with a dense D. On a
-BlockTridiagFactor with the propagation pattern a ``run_iters`` call's
-sweeps are one launch of kernel K4 on the card (``admm_sweeps.py``).
+The layers below hold each kernel with its plain version, and this module
+re-exports the reference's names from them: the recursive ``chol_inv``
+(K1, ``chol_base.py``); ``BlockTridiagFactor``, ``factorize`` ("cholinv",
+"cholinv_pb" and the "sequential" factorizer's panel Cholesky) and
+``solve_factorized`` beside the whole-horizon factorization of K3
+(``factorizer="pallas"``, ``fac_whole.py``); the box-row matvecs and the
+sweep loop beside K4 (``admm_sweeps.py``), which takes a ``run_iters``
+call's sweeps on a BlockTridiagFactor with the propagation pattern in one
+launch on the card; block cyclic reduction (``factorizer="cyclic"``) and
+the library Cholesky (``blocked.py``). The recursion's panel products
+(CPU path) and the Schur updates are plain batched products (left to XLA
+in the JAX package, to cuBLAS here); so are the ADMM sweeps on the BABE
+and cyclic factors and with a dense D.
 Not ported: bf16 storage of the matvec operator and of the factor (the
 port computes in float32 only; the reference records both as diverging or
 not worth it).
@@ -29,12 +32,15 @@ from typing import NamedTuple
 import torch
 
 from .. import trace
-from .admm_sweeps import admm_sweeps
-from .blocked import (CyclicFactor, chol_blocked, factorize_cyclic,
-                      solve_cyclic, tri_inverse_lower)
-from .chol_base import (MAX_S, chol_base_unrolled, chol_inv_base_plain,
-                        chol_inv_node, tri_inv_doubling)
-from .fac_whole import factorize_whole
+# the names of the layers below that callers read as qp.<name> (the
+# reference's qp module holds them all) are re-exported with the rest
+from .admm_sweeps import (_A_matvec, _At_matvec,  # noqa: F401
+                          admm_sweeps, sweep_loop)
+from .blocked import (CyclicFactor, _bmv, chol_blocked,  # noqa: F401
+                      factorize_cyclic, solve_cyclic, tri_inverse_lower)
+from .chol_base import chol_inv, kernel_blocks  # noqa: F401
+from .fac_whole import (BlockTridiagFactor, factorize, factorize_whole,
+                        solve_factorized)
 
 #: the factorizers the port has; "auto" is "cholinv_pb" on CUDA tensors and
 #: "sequential" on CPU tensors, as the reference resolves it on and off the
@@ -97,15 +103,6 @@ def _check_precision(cfg):
                 f"\"highest\" is accepted")
 
 
-class BlockTridiagFactor(NamedTuple):
-    """Linv (Bs, N+1, s, s), W (Bs, N+1, s, s) with W_0 = 0,
-    V (Bs, N+1, s, k) with V_N = 0 (see the JAX docstring)."""
-
-    Linv: torch.Tensor
-    W: torch.Tensor
-    V: torch.Tensor
-
-
 class QPWork(NamedTuple):
     """The factor, A (Bs, N, m, s), D (the int k of the propagation
     pattern, or (Bs, N, m, s)) and the per-row rho."""
@@ -162,114 +159,6 @@ def assemble_blocks(G, B, C, P_diag, rho_vec, sigma, box_idx=None,
     U = torch.einsum("bnms,bnmt->bnst", rA, D)
     H[:, 1:] += DtD
     return H, U, A, D
-
-
-def _split(s):
-    """Size of the leading block of chol_inv's 2x2 split of an s x s block."""
-    return (s + 1) // 2
-
-
-def kernel_blocks(s):
-    """Sizes of the blocks, in order, that chol_inv(base_impl="kernel")
-    hands to one K1 launch each on a CUDA tensor of width s: s itself up to
-    MAX_S, else the 2x2 recursion's blocks down to widths <= MAX_S."""
-    if s <= MAX_S:
-        return [s]
-    k = _split(s)
-    return kernel_blocks(k) + kernel_blocks(s - k)
-
-
-def chol_inv(S, base=16, base_impl="torch"):
-    """(L, Linv) of SPD blocks (..., s, s) by recursive 2x2 block Cholesky.
-
-    base_impl="kernel" materializes only Linv (L is None). It hands every
-    block of width <= MAX_S (112) whole to the K1 op (``chol_inv_node``),
-    recursing only above that (``kernel_blocks``). On a CUDA tensor that
-    is one K1 launch, so ``base`` (``ADMMConfig.chol_base``) does not
-    shape the factorization there: the factor is the same up to f32
-    roundoff. On a CPU tensor the op recurses to leaves s <= base and
-    computes them in plain torch, as base_impl="torch" does."""
-    s = S.shape[-1]
-    if base_impl == "kernel" and s <= MAX_S:
-        return None, chol_inv_node(S, base)
-    if s <= base:
-        if base_impl == "kernel":
-            return None, chol_inv_base_plain(S)
-        L, dinv = chol_base_unrolled(S)
-        return L, tri_inv_doubling(L, dinv)
-    k = _split(s)
-    L1, L1i = chol_inv(S[..., :k, :k], base, base_impl)
-    L21 = S[..., k:, :k] @ L1i.transpose(-1, -2)
-    S2 = S[..., k:, k:] - L21 @ L21.transpose(-1, -2)
-    L2, L2i = chol_inv(S2, base, base_impl)
-    B21 = -(L2i @ L21 @ L1i)
-    zer = S.new_zeros(S.shape[:-2] + (k, s - k))
-    L = None
-    if L1 is not None and L2 is not None:
-        L = torch.cat([torch.cat([L1, zer], -1), torch.cat([L21, L2], -1)], -2)
-    Linv = torch.cat([torch.cat([L1i, zer], -1), torch.cat([B21, L2i], -1)], -2)
-    return L, Linv
-
-
-def factorize(H, U, chol_impl="cholinv_pb", base=16, u_cols=None):
-    """Blocked Cholesky of the tridiagonal M, node by node.
-    H (Bs, N+1, s, s), U (Bs, N, s, k).
-
-    chol_impl: "cholinv" / "cholinv_pb" the recursive chol_inv (leaves in
-    plain torch / the whole node in K1 on the card), "blocked" the panel
-    Cholesky and the doubling triangular inverse (the "sequential"
-    factorizer). u_cols: the count k of U's live columns, when only
-    U[..., :k] is nonzero."""
-    if chol_impl not in ("cholinv", "cholinv_pb", "blocked"):
-        raise ValueError(f"unknown chol_impl {chol_impl!r}")
-    base_impl = "kernel" if chol_impl == "cholinv_pb" else "torch"
-    Bs, K, s = H.shape[0], H.shape[1], H.shape[2]
-    k = U.shape[-1] if u_cols is None else u_cols
-    U = U[..., :k]
-    eye = 1e-6 * torch.eye(s, dtype=H.dtype, device=H.device)
-    prev_F = H.new_zeros(Bs, s, k)
-    Linvs, Fs = [], []
-    for i in range(K):
-        S = H[:, i].clone()
-        S[:, :k, :k] -= prev_F.transpose(-1, -2) @ prev_F
-        S = S + eye
-        if chol_impl == "blocked":
-            Linv_i = tri_inverse_lower(chol_blocked(S))
-        else:
-            _, Linv_i = chol_inv(S, base, base_impl)
-        F_i = (Linv_i @ U[:, i] if i < K - 1 else H.new_zeros(Bs, s, k))
-        Linvs.append(Linv_i)
-        Fs.append(F_i)
-        prev_F = F_i
-    Linv = torch.stack(Linvs, dim=1)
-    F = torch.stack(Fs, dim=1)
-    F_prev = torch.cat([F.new_zeros(Bs, 1, s, k), F[:, :-1]], dim=1)
-    W = Linv[..., :k] @ F_prev.transpose(-1, -2)
-    V = Linv.transpose(-1, -2) @ F
-    return BlockTridiagFactor(Linv=Linv, W=W, V=V)
-
-
-def _bmv(M, x):
-    return (M @ x.unsqueeze(-1)).squeeze(-1)
-
-
-def solve_factorized(fac, b):
-    """Solve M x = b, b (Bs, N+1, s)."""
-    K = b.shape[1]
-    Pb = _bmv(fac.Linv, b)
-    y = torch.zeros_like(b[:, 0])
-    Y = []
-    for i in range(K):
-        y = Pb[:, i] - _bmv(fac.W[:, i], y)
-        Y.append(y)
-    T = _bmv(fac.Linv.transpose(-1, -2), torch.stack(Y, dim=1))
-    kv = fac.V.shape[-1]
-    x = torch.zeros_like(b[:, 0])
-    X = [None] * K
-    for i in range(K - 1, -1, -1):
-        x = T[:, i] - _bmv(fac.V[:, i], x[:, :kv])
-        X[i] = x
-    return torch.stack(X, dim=1)
 
 
 class BabeFactor(NamedTuple):
@@ -362,34 +251,6 @@ def solve_babe(fac, b):
     X = torch.stack(X, dim=1)
     return torch.cat([X[:, d - nl:, 0], x_sep[:, None],
                       X[:, d - nr:, 1].flip(1)], dim=1)
-
-
-def _A_matvec(A, D, X, box_idx=None):
-    """w_i = A_i s_i + D_i s_{i+1} (+ box selector rows); X (Bs, N+1, s).
-    D is the int k of the propagation pattern (a slice) or dense."""
-    out = _bmv(A, X[:, :-1])
-    if isinstance(D, int):
-        out = out.clone()
-        out[..., :D] += X[:, 1:, :D]
-    else:
-        out = out + _bmv(D, X[:, 1:])
-    if box_idx is not None:
-        out = torch.cat([out, X[:, :-1][..., box_idx]], dim=-1)
-    return out
-
-
-def _At_matvec(A, D, W, box_idx=None):
-    """X_i = A_i^T w_i + D_{i-1}^T w_{i-1}; W (Bs, N, m_all)."""
-    Bs, N, md, s = A.shape
-    out = W.new_zeros(Bs, N + 1, s)
-    out[:, :-1] += _bmv(A.transpose(-1, -2), W[..., :md])
-    if isinstance(D, int):
-        out[:, 1:, :D] += W[..., :D]
-    else:
-        out[:, 1:] += _bmv(D.transpose(-1, -2), W[..., :md])
-    if box_idx is not None:
-        out[:, :-1, box_idx] += W[..., md:]
-    return out
 
 
 def ruiz_equilibrate(G, B, C, P_diag, iters):
@@ -604,19 +465,11 @@ def run_iters(work, q, l, u, cfg, x, z, y, iters, box_idx=None):
 
 
 def sweeps_plain(work, q, l, u, sigma, alpha, x, z, y, iters, box_idx=None):
-    """The sweeps as plain batched products, on any factor and D."""
-    rho = work.rho_vec
-    solve = _solver_for(work.fac)
-    for _ in range(iters):
-        rhs = sigma * x - q + _At_matvec(work.A, work.D, rho * z - y, box_idx)
-        x_t = solve(work.fac, rhs)
-        z_t = _A_matvec(work.A, work.D, x_t, box_idx)
-        x_new = alpha * x_t + (1.0 - alpha) * x
-        z_relax = alpha * z_t + (1.0 - alpha) * z
-        z_new = torch.clamp(z_relax + y / rho, min=l, max=u)
-        y = y + rho * (z_relax - z_new)
-        x, z = x_new, z_new
-    return x, z, y
+    """The sweeps as plain batched products, on any factor and D (K4's
+    loop, ``admm_sweeps.sweep_loop``, with the factor's own solve)."""
+    return sweep_loop(_solver_for(work.fac), work.fac, work.A, work.D,
+                      work.rho_vec, q, l, u, sigma, alpha, x, z, y, iters,
+                      box_idx)
 
 
 @trace.traced("qp.admm_solve")
