@@ -119,7 +119,16 @@ Phases, one line each (any failure raises; exit code non-zero):
     against a float64 loop (K4's at most SOLVE_ERR_RATIO times the plain
     loop's), a NaN kept in its scenario, and the device and call ms of
     both beside the bound from the bytes a sweep reads;
-36. one JSON line with each kernel's error, times, bound and launch counts
+36. the SQP's residual evaluation replayed as one CUDA graph per shape
+    (solver.graphs): the replayed residual torch.equal to
+    Transcription.evaluate at the hot config's (2, B) and (B) iterates, B
+    = 512 and 4096, and the accurate config's (8, 512); warm hot and
+    accurate ticks at batch 512 with the graphs equal to ticks without
+    them and to a fresh MPC's, with 2 captures per solver and 2 (hot) and
+    5 (accurate) replays per warm tick; the device operations per call of
+    evaluate and linearize in an eager tick; and the peak device memory
+    of the hot config at batch 4096 with the graphs against without;
+37. one JSON line with each kernel's error, times, bound and launch counts
     (per path under "path_launches").
 The bounds of 17, 18 and 21 are SPREAD_FACTOR times JAX against itself,
 and the gates of 19, 20 and 32 JAX's own violation widened by that (see
@@ -1044,6 +1053,211 @@ def phase_sync_free(dev, ship, batch=512, warm=2):
             f"{viol:.4f} (gate {VIOL_GATE})")
 
 
+def ops_under(prof, labels):
+    """Device operations (kernels, copies, memsets) launched under each
+    ``record_function`` label of a finished profile: label -> (calls,
+    operations per call)."""
+    from torch.autograd import DeviceType
+
+    def ops(e):
+        return len(e.kernels) + sum(ops(c) for c in e.cpu_children)
+
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in labels:
+            n, k = out.get(e.name, (0, 0))
+            out[e.name] = (n + 1, k + ops(e))
+    return {name: (n, k / n) for name, (n, k) in out.items()}
+
+
+def same_tick(a, b):
+    """Whether two ticks' (carry, stats) are equal bit for bit."""
+    import torch
+
+    (ca, sa), (cb, sb) = a, b
+    pairs = [(ca.x_init, cb.x_init), (ca.tau_prev, cb.tau_prev)]
+    pairs += list(zip(ca.solver_state, cb.solver_state))
+    pairs += [(sa[k], sb[k]) for k in sa]
+    return all(torch.equal(x, y) for x, y in pairs)
+
+
+def phase_graphs(dev, ship, batch=512, big=4096, warm=2):
+    """36: the SQP's residual evaluation as one CUDA graph per shape
+    (``solver.graphs``). (a) On the hot config's (2, B) and (B) iterates
+    at B = 512 and 4096 and the accurate config's (8, 512), from a warm
+    tick's inputs, on a fresh solver: its evaluation on the first call
+    (eager), the second (the capture, returning the warm-up's result) and
+    two replays on new values, each torch.equal to
+    ``Transcription.evaluate`` on the same inputs; call ms eager and
+    replayed. (b) Hot and accurate at batch 512: warm + 1 ticks of an MPC
+    with the graphs (2 captures) equal to those of one with them off; a
+    warm tick with the graphs (replays 2 hot, 5 accurate; no capture)
+    equal to the same tick of the MPC with them off and of one built
+    fresh, from the same carry; that eager tick's device operations per
+    call of evaluate and linearize, from the profiler. (c) Hot at batch
+    4096, 3 ticks: peak device memory allocated and reserved with the
+    graphs against with them off."""
+    import gc
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import tpu_locoman_torch as T
+    from tpu_locoman_torch import trace
+
+    caps, reps = "graphs.evaluate.captures", "graphs.evaluate.replays"
+    target = {B: torch.tensor([0.2, 0, 0, 0, 0, 0], device=dev).repeat(B, 1)
+              for B in (batch, big)}
+    makers = {"hot": lambda: hot_mpc(T, dev, ship["factorizer"], ship=ship),
+              "accurate": lambda: accurate_mpc(T, "accurate")}
+
+    def tick(mpc, carry, k, B):
+        return T.batched_step(mpc)(carry, k * mpc.dt_min, target[B])
+
+    class Eager:
+        """The solver's evaluation with the graphs off: ``fn`` as it is."""
+        path = "eager"
+
+        def __init__(self, fn):
+            self.fn = fn
+
+        def __call__(self, *args):
+            return self.fn(*args)
+
+    def eager(mpc):
+        mpc.solver._evaluate = Eager(mpc.trans.evaluate)
+        return mpc
+
+    def counts():
+        return trace.counter(caps), trace.counter(reps)
+
+    # ---- (a) replayed residual == eager residual ---------------------------
+    src = {name: eager(make()) for name, make in makers.items()}
+    test = {name: make() for name, make in makers.items()}
+    gen = torch.Generator(device=dev).manual_seed(36)
+    rows = []
+    for name, lead, B in (("hot", (2,), batch), ("hot", (), batch),
+                          ("hot", (2,), big), ("hot", (), big),
+                          ("accurate", (8,), batch)):
+        carry = T.batched_init(src[name], B)
+        for k in range(warm):
+            carry, _ = tick(src[name], carry, k, B)
+        state, sp, shared = src[name]._prepare(
+            carry, warm * src[name].dt_min, target[B], None, None, None, None)
+        Z = state.Z
+        ev, trans = test[name].solver._evaluate, test[name].trans
+        dZ = 1e-2 * torch.randn(lead + Z.shape, device=dev, generator=gen)
+        trace.reset_counters()
+        got = []
+        for k in range(4):
+            Zk = Z + (k + 1) * dZ
+            sh = shared._replace(x_init=shared.x_init + 1e-3 * k)
+            got.append((ev(Zk, sp, sh), ev.path, trans.evaluate(Zk, sp, sh)))
+        torch.cuda.synchronize()
+        what = f"{name} {lead + (B,)}"
+        paths = [p for _, p, _ in got]
+        check(paths == ["eager", "eager", "graph", "graph"],
+              f"{what}: paths {paths}")
+        check(counts() == (1, 2), f"{what}: captures, replays {counts()}")
+        for k, (r, _, ref) in enumerate(got):
+            check(torch.equal(r, ref), f"{what} call {k}: replayed != eager, "
+                  f"max |d| {float((r - ref).abs().max())}")
+        check(not torch.equal(got[2][0], got[3][0]),
+              f"{what}: replays on other values agree")
+        t_graph = median_ms(torch, lambda: ev(Zk, sp, sh), reps=10, warm=1)
+        t_eager = median_ms(torch, lambda: trans.evaluate(Zk, sp, sh),
+                            reps=10, warm=1)
+        rows.append(f"{what} call ms eager {t_eager:.2f}, replayed "
+                    f"{t_graph:.2f}")
+        del got, state, sp, shared, Z, dZ, carry
+    del src, test
+
+    # ---- (b) ticks with the graphs == ticks without them -------------------
+    ticks_line, eager_mpcs, carries = [], {}, {}
+    for name, make in makers.items():
+        per_tick = 2 if name == "hot" else 5
+        mpc, off = make(), eager(make())
+        trace.reset_counters()
+        cg = ce = T.batched_init(mpc, batch)
+        for k in range(warm + 1):
+            rg, re_ = tick(mpc, cg, k, batch), tick(off, ce, k, batch)
+            check(same_tick(rg, re_), f"{name} tick {k}: graphs on != off")
+            cg, ce = rg[0], re_[0]
+            if k == warm - 1:
+                check(counts()[0] == 2, f"{name}: {counts()[0]} captures "
+                      f"in {warm} ticks")
+        check(counts()[0] == 2, f"{name}: a capture after {warm} ticks")
+        trace.reset_counters()
+        replayed = tick(mpc, cg, warm + 1, batch)
+        check(counts() == (0, per_tick),
+              f"{name}: warm tick captures, replays {counts()}")
+        fresh = tick(make(), cg, warm + 1, batch)
+        check(same_tick(replayed, fresh), f"{name}: warm replayed tick != a "
+              f"fresh MPC's tick")
+        ticks_line.append(f"{name} ({warm + 1} ticks equal, 2 captures in "
+                          f"the first {warm}, then replays {per_tick} per "
+                          f"warm tick)")
+        eager_mpcs[name], carries[name] = off, cg
+        del mpc, replayed, fresh
+    for name, off in eager_mpcs.items():
+        for fn in ("evaluate", "linearize"):
+            def labelled(*a, _fn=getattr(off.trans, fn),
+                         _label=f"{name} {fn}"):
+                with record_function(_label):
+                    return _fn(*a)
+            if fn == "evaluate":
+                off.solver._evaluate = Eager(labelled)
+            else:
+                off.trans.linearize = labelled
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name, off in eager_mpcs.items():
+            with record_function(f"{name} tick"):
+                tick(off, carries[name], warm + 1, batch)
+            torch.cuda.synchronize()
+    per_call = ops_under(prof, {f"{n} {w}" for n in eager_mpcs
+                                for w in ("tick", "evaluate", "linearize")})
+    table = []
+    for name in eager_mpcs:
+        n_t = per_call.get(f"{name} tick", (0, 0))[1]
+        parts = [f"tick {n_t:.0f}"]
+        for fn in ("evaluate", "linearize"):
+            calls, per = per_call.get(f"{name} {fn}", (0, 0))
+            parts.append(f"{fn} {calls} x {per:.0f} = {calls * per:.0f} "
+                         f"({100 * calls * per / max(n_t, 1):.1f}%)")
+        table.append(f"{name}: " + ", ".join(parts))
+    del eager_mpcs, carries, prof
+
+    # ---- (c) peak memory at batch 4096 -------------------------------------
+    peaks = {}
+    for on in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mpc = makers["hot"]() if on else eager(makers["hot"]())
+        carry = T.batched_init(mpc, big)
+        for k in range(3):
+            carry, _ = tick(mpc, carry, k, big)
+        torch.cuda.synchronize()
+        peaks[on] = (torch.cuda.max_memory_allocated() / 1e9,
+                     torch.cuda.max_memory_reserved() / 1e9)
+        del mpc, carry
+    gc.collect()
+    torch.cuda.empty_cache()
+    rise = peaks[True][0] - peaks[False][0]
+    check(rise <= 4.0, f"graphs raise the peak allocated by {rise} GB")
+    return (f"[36 graphed evaluate] replayed residual == Transcription."
+            f"evaluate bit for bit (eager, capture, 2 replays on new values): "
+            + "; ".join(rows) + f". Batch {batch}: " + ", ".join(ticks_line)
+            + "; device operations of an eager warm tick per call: "
+            + "; ".join(table) + f". Hot at batch {big}, 3 ticks, peak "
+            f"allocated / reserved GB: graphs off {peaks[False][0]:.3f} / "
+            f"{peaks[False][1]:.3f}, on {peaks[True][0]:.3f} / "
+            f"{peaks[True][1]:.3f} (allocated {rise:+.3f} GB)")
+
+
 def run_ticks(step, carry, target, dt, warm, timed):
     """Tick with step(carry, t, target) from carry, each tick bracketed by a
     device synchronize; every output must be finite."""
@@ -1878,7 +2092,7 @@ def main():
 
 
 def run(args, stack):
-    """Phases 1-36; ``stack`` ends the export workers and their files."""
+    """Phases 1-37; ``stack`` ends the export workers and their files."""
     import numpy as np
     import torch
 
@@ -2430,6 +2644,9 @@ def run(args, stack):
     k4_rows, line = phase_k4(dev, ship)
     plog(line)
 
+    # ---- 36. the residual evaluation as CUDA graphs ----------------------------
+    plog(phase_graphs(dev, ship, batch))
+
     for tag, what, path, tick_ms, ticks_of in (profiles if args.profile
                                                 else []):
         dev_ms, n_k, wall = profile_ticks(*ticks_of(), path)
@@ -2438,7 +2655,7 @@ def run(args, stack):
              f"{tick_ms:.2f} without (idle {100 * (1 - dev_ms / tick_ms):.1f}%"
              f" of the unprofiled tick)")
 
-    # ---- 36. kernels ------------------------------------------------------------
+    # ---- 37. kernels ------------------------------------------------------------
     k3_main = next(r for r in k3_rows if (r["K"], r["Bs"]) == (14, 1))
     k2_main = k2_rows["B2G 7168"]
     # (K1, K2, K3, K4) launches of every path's driven run

@@ -168,12 +168,15 @@ def test_one_tick_records_every_span_in_its_place(tracer):
     fac = [s.attrs for s in spans if s.name == "qp.factorize"]
     assert fac[0] == {"factorizer": cfg.admm.factorizer, "Bs": 2, "K": 4,
                       "s": mpc.trans.s}
+    # on the CPU the residuals are evaluated eagerly, never replayed
     assert [s.attrs for s in spans if s.name == "sqp.line_search"] == [
-        {"trials": cfg.n_trials, "batch": 2}]
+        {"trials": cfg.n_trials, "batch": 2, "path": "eager"}]
+    assert [s.attrs for s in spans if s.name == "sqp.corrector"] == [
+        {"path": "eager"}]
     assert [s.attrs for s in spans if s.name == "sqp.eq_projection"] == [
         {"passes": 1}]
     assert [s.attrs for s in spans if s.name == "sqp.eq_projection.pass"] == [
-        {"k": 0}]
+        {"k": 0, "path": "eager"}]
     for s in spans:
         assert all(type(v) in (int, str) for v in s.attrs.values())
 

@@ -261,7 +261,9 @@ class CentroidalVel(Formulation):
         """v_b = A_b^-1 (h m - A_j v_j)."""
         A = rbda.ccrba(self.model, q)
         rhs = h * self.mass - rbda.mv(A[..., 6:], v_j)
-        return torch.linalg.solve(A[..., :6], rhs)
+        # solve_ex: solve's singularity check syncs with the device, which
+        # the SQP's replayed residual evaluation cannot hold
+        return torch.linalg.solve_ex(A[..., :6], rhs).result
 
     def base_acc_dynamics(self, q, v, a_j, forces):
         """a_b = A_b^-1 (dh - Adot v - A_j a_j); used by the retraction."""
@@ -334,7 +336,8 @@ def _centroidal_base_acc(form, q, v, a_j, forces):
     Adot = rbda.dccrba(form.model, q, v)
     dh = form.com_dynamics(q, forces)
     rhs = dh - rbda.mv(Adot, v) - rbda.mv(A[..., 6:], a_j)
-    return torch.linalg.solve(A[..., :6], rhs)
+    # solve_ex, as in base_vel_dynamics
+    return torch.linalg.solve_ex(A[..., :6], rhs).result
 
 
 class _AccStateFormulation(Formulation):
@@ -471,7 +474,8 @@ class WholeBodyAcc(_AccInput):
             tau_ext = tau_ext + rbda.mv(J[..., :3, :6].transpose(-1, -2),
                                         forces[..., 3 * idx:3 * idx + 3])
         rhs = -nle[..., :6] - rbda.mv(M[..., :6, 6:], a_j) + tau_ext
-        return torch.linalg.solve(M[..., :6, :6], rhs)
+        # solve_ex, as in base_vel_dynamics
+        return torch.linalg.solve_ex(M[..., :6, :6], rhs).result
 
     def _base_gaps(self, d, sp):
         return [self.rnea_dyn(d["q"], d["v"], d["a"], d["forces"])[..., :6]]

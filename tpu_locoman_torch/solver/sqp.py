@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from .. import trace
+from .graphs import Graphed
 from .qp import (ADMMConfig, _A_matvec, admm_solve, eq_project, kkt_polish,
                  run_iters)
 
@@ -80,6 +81,10 @@ class SQPSolver:
             raise ValueError("SQPConfig.sqp_iters must be >= 1")
         self.trans = transcription
         self.cfg = config
+        # the residuals at the trial steps, the corrected and the projected
+        # iterates: thousands of small launches per call, replayed on the
+        # card as one CUDA graph per shape
+        self._evaluate = Graphed(transcription.evaluate, "evaluate")
 
     def init_state(self, batch, device):
         t = self.trans
@@ -98,7 +103,7 @@ class SQPSolver:
                                              device=Z.device)
         Zc = Z + alphas[:, None, None, None] * d
         new_fs = t.objective_value(Zc, obj)  # (T, B)
-        new_res = t.evaluate(Zc, sp, shared)  # (T, B, N, m)
+        new_res = self._evaluate(Zc, sp, shared)  # (T, B, N, m)
         viol = _viol(new_res, l_b, u_b)
         new_gs, new_maxv = _norm(viol), _amax(viol)
 
@@ -149,7 +154,7 @@ class SQPSolver:
         best_Z, best_viol = Z, max_viol
         kept = torch.zeros_like(max_viol, dtype=torch.long)
         for k in range(cfg.eq_projection):
-            with trace.span("sqp.eq_projection.pass", k=k):
+            with trace.span("sqp.eq_projection.pass", k=k) as span:
                 g_now, Gf, Bf, Cf = t.linearize(Z, sp, shared)
                 row_norm = torch.maximum(
                     Gf.abs().amax(-1),
@@ -159,7 +164,9 @@ class SQPSolver:
                 Z = Z + eq_project(Gf, Bf, Cf, P_diag, r, W,
                                    factorizer=cfg.admm.factorizer,
                                    base=cfg.admm.chol_base)
-                viol_try = _amax(_viol(t.evaluate(Z, sp, shared), l_b, u_b))
+                g_try = self._evaluate(Z, sp, shared)
+                span.set(path=self._evaluate.path)
+                viol_try = _amax(_viol(g_try, l_b, u_b))
                 finite = torch.isfinite(viol_try)
                 better = finite & (viol_try <= best_viol)
                 best_Z = torch.where(better[:, None, None], Z, best_Z)
@@ -217,20 +224,21 @@ class SQPSolver:
             y_admm = torch.where(keep, y_admm, torch.zeros_like(y_admm))
             if cfg.line_search:
                 with trace.span("sqp.line_search", trials=cfg.n_trials,
-                                batch=Z.shape[0]):
+                                batch=Z.shape[0]) as span:
                     Z, alpha, max_viol, g_new = self._line_search(
                         Z, d, obj, sp, shared, l_b, u_b, g)
+                    span.set(path=self._evaluate.path)
             else:
                 Z = Z + d
                 alpha = torch.ones(Z.shape[0], device=Z.device)
-                g_new = t.evaluate(Z, sp, shared)
+                g_new = self._evaluate(Z, sp, shared)
                 max_viol = _amax(_viol(g_new, l_b, u_b))
 
         if cfg.corrector_iters > 0:
             # fresh residuals at the stepped iterate against the same
             # linearization and factorization, warm started from the main
             # QP's state shifted by the step taken
-            with trace.span("sqp.corrector"):
+            with trace.span("sqp.corrector") as span:
                 q2 = t.objective_gradient(Z, obj)
                 Ad = _A_matvec(work.A, work.D, d, box)
                 a3 = alpha[:, None, None]
@@ -243,7 +251,8 @@ class SQPSolver:
                                  d2)
                 bad = bad | bad2
                 Z = Z + d2
-                g3 = t.evaluate(Z, sp, shared)
+                g3 = self._evaluate(Z, sp, shared)
+                span.set(path=self._evaluate.path)
                 max_viol = _amax(_viol(g3, l_b, u_b))
 
         if cfg.eq_projection > 0:
