@@ -51,12 +51,29 @@ class Cell:
                               else m["moves"] in moves)]
 
 
-def reader(metric_name):
-    """``read(run)`` of ``metrics/<metric_name>.py``: the metric's value from
-    a finished run, or None where the run holds nothing to read."""
+def metric_module(metric_name):
+    """The module ``metrics/<metric_name>.py``."""
     path = os.path.join(HERE, "metrics", metric_name + ".py")
     spec = importlib.util.spec_from_file_location(
         "benchmark.metrics." + metric_name.replace(".", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(metric_name):
+    """``read(run)`` of ``metrics/<metric_name>.py``: the metric's value from
+    a finished run, or None where the run holds nothing to read."""
+    return metric_module(metric_name).read
+
+
+def window_reads(metrics):
+    """The reads that the traced window takes at ``quality_ticks``, by
+    metric name: each metric module's ``window_read()``, called before the
+    window, returns the read (a module without one takes none)."""
+    reads = {}
+    for m in metrics:
+        start = getattr(metric_module(m["name"]), "window_read", None)
+        if start is not None:
+            reads[m["name"]] = start()
+    return reads

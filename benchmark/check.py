@@ -1,8 +1,13 @@
 """The comparison that decides ``correct``.
 
-A sample of the window's ticks, drawn from the seed (and always the
-window's first and last tick), is kept as the program ran it: the carry it
+A sample of the window's ticks is kept as the program ran it: the carry it
 started from, its clock and targets, the carry it returned and its stats.
+The sample is the window's first tick, ``check.ticks`` ticks drawn from the
+seed among the first ``check.horizon``, and the late tick: window tick
+``check.late``, or the window's last where it holds fewer
+(``workloads/<cell>.json``). Every kept tick is a fixed window tick, so a
+faster program is held to the same ticks as a slower one, and not deeper
+into a closed-loop rollout that degrades with its length (``PERF.md``).
 Once the window has closed and the program's state is freed, the plain
 reference (``benchmark/reference``, float32 with TF32 off) runs each of
 those ticks again from the same carry, clock and targets, at the same
@@ -75,16 +80,25 @@ def gaps(out, stats, ref_out, ref_stats):
             "viol_gap": _finite(viol)}
 
 
-def compare(records, ref, base_vel):
-    """The worst of each number over the kept ticks; ``records`` are
-    (k, carry_in, t, carry_out, stats) of the program."""
-    worst = dict.fromkeys(NAMES, 0.0)
-    for _, carry, t, out, stats in records:
+def compare_each(records, ref, base_vel):
+    """Each kept tick's numbers, by window tick; ``records`` are (k,
+    carry_in, t, carry_out, stats) of the program."""
+    each = {}
+    for k, carry, t, out, stats in records:
         ref_out, ref_stats = reference_step(ref, carry, t, base_vel)
-        for k, v in gaps(out, stats, ref_out, ref_stats).items():
-            worst[k] = max(worst[k], v)
+        each[k] = gaps(out, stats, ref_out, ref_stats)
         del ref_out, ref_stats
-    return worst
+    return each
+
+
+def worst(each):
+    """The worst of each number over the ticks of ``compare_each``."""
+    return {n: max([0.0] + [g[n] for g in each.values()]) for n in NAMES}
+
+
+def compare(records, ref, base_vel):
+    """The worst of each number over the kept ticks."""
+    return worst(compare_each(records, ref, base_vel))
 
 
 def verdict(values, limits):

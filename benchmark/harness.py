@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from . import build, check, spans, traffic
-from .cell import Cell, reader
+from .cell import Cell, reader, window_reads
 
 #: top-level module names that may not be loaded in a run
 FORBIDDEN = ("jax", "jaxlib", "flax", "tpu_locoman")
@@ -38,6 +38,9 @@ class Run(NamedTuple):
     scenario_ticks: int
     settings: dict  # the cell's ``workloads/<cell>.json``
     trace: dict  # spans.summarize's summary, or None
+    #: by metric name, what its ``window_read`` read at ``quality_ticks``
+    #: (``--trace 1``)
+    snapshots: dict = None
 
 
 def parse(argv):
@@ -63,16 +66,21 @@ def _tick(step, carry, t, base_vel):
     return out, stats, host
 
 
-def window(step, carry, inputs, dt, k0, seconds, keep, prof=None,
-           prof_ticks=0):
-    """Tick closed loop from tick ``k0`` until ``seconds`` have passed.
-    With ``prof`` the first ``prof_ticks`` + 1 ticks run under the
-    profiler, each in a tick span (the first one warms the profiler up).
-    Returns a dict of what was measured, with ``records``: (k, carry in,
-    t, carry out, stats) of the first and last tick of the window and of
-    those in ``keep``."""
+def window(step, carry, inputs, dt, k0, seconds, keep, *, late=None,
+           prof=None, prof_ticks=0, ticks=0, snapshot=None):
+    """Tick closed loop from tick ``k0`` until ``seconds`` have passed and
+    at least ``ticks`` ticks have run. With ``prof`` the first
+    ``prof_ticks`` + 1 ticks run under the profiler, each in a tick span
+    (the first one warms the profiler up). With ``snapshot`` = (n, read),
+    ``read()`` is called once between window ticks n - 1 and n (after the
+    last tick where the window holds fewer). Returns a dict of what was
+    measured, with ``records``: (k, carry in, t, carry out, stats) of the
+    window's first tick, of those in ``keep`` (every tick where ``keep``
+    is None) and of tick ``min(last, late)``, and ``snapshot``: what
+    ``read()`` returned."""
     tick_s, tick_viol, records = [], [], []
     scen, failed = 0, 0
+    snap = None
     if prof is not None:
         prof.__enter__()
     w0 = time.perf_counter()
@@ -91,32 +99,44 @@ def window(step, carry, inputs, dt, k0, seconds, keep, prof=None,
         bad = (host[:, -1] == 2) | ~np.isfinite(host[:, :-1]).all(1)
         failed += int(bad.sum())
         last = (k, carry, t, out, stats)
-        if k == 0 or k in keep:
+        if k == 0 or keep is None or k in keep or k == late:
             records.append(last)
         carry = out
         k += 1
         if prof is not None and k == prof_ticks + 1:
             prof.__exit__(None, None, None)
             prof = None
-        if t1 - w0 >= seconds and prof is None:
+        if snapshot is not None and k == snapshot[0]:
+            snap = snapshot[1]()
+        if t1 - w0 >= seconds and k >= ticks and prof is None:
             break
-    if records[-1][0] != last[0]:
+    if snapshot is not None and k < snapshot[0]:
+        snap = snapshot[1]()
+    if records[-1][0] != last[0] and (late is None or last[0] < late):
         records.append(last)
     return {"w0": w0, "window_s": t1 - w0, "tick_s": tick_s,
             "tick_violation": tick_viol, "scenario_ticks": scen,
-            "failed": failed, "records": records}
+            "failed": failed, "records": records, "snapshot": snap}
 
 
-def run_cell(name, seed, seconds, trace, t_start, device="cuda", batch=None,
-             program=None):
-    """One run of cell ``name``; returns the result's dict. ``device``,
-    ``batch`` and ``program`` (a ``build.Package`` put in the program's
-    place) serve the harness's own tests and calibration."""
-    cell = Cell(name)
+class Prepared(NamedTuple):
+    """A cell's program built, its inputs made and its shapes warmed up:
+    what the window starts from."""
+
+    step: object  # (carry, t, base_vel) -> (carry, stats)
+    carry: object
+    inputs: traffic.Inputs
+    dt: float
+    k0: int  # the window's first tick on the clock: after the warm-up
+    t_built: float  # perf_counter when the MPC was built
+    warm_s: list  # each warm-up tick's seconds
+
+
+def prepare(cell, seed, dev, batch=None, program=None):
+    """Build ``cell``'s MPC of ``program`` (the program by default) on
+    ``dev``, make the seed's inputs at the cell's batch (or ``batch``) and
+    run the mix's warm-up ticks."""
     mix = dict(cell.traffic, **({} if batch is None else {"batch": batch}))
-    dev = torch.device(device)
-    cuda = dev.type == "cuda"
-    t_load = time.perf_counter()
     pkg = program or build.program()
     mpc = build.build_mpc(pkg, cell.config, dev)
     t_built = time.perf_counter()
@@ -130,18 +150,37 @@ def run_cell(name, seed, seconds, trace, t_start, device="cuda", batch=None,
         t0 = time.perf_counter()
         carry, _, _ = _tick(step, carry, inputs.time(k, dt), inputs.base_vel)
         warm_s.append(time.perf_counter() - t0)
+    return Prepared(step, carry, inputs, dt, warm, t_built, warm_s)
+
+
+def run_cell(name, seed, seconds, trace, t_start, device="cuda", batch=None,
+             program=None, ticks=0):
+    """One run of cell ``name``; returns the result's dict. ``device``,
+    ``batch``, ``program`` (a ``build.Package`` put in the program's
+    place) and ``ticks`` (the fewest window ticks) serve the harness's own
+    tests and calibration."""
+    cell = Cell(name)
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    t_load = time.perf_counter()
+    p = prepare(cell, seed, dev, batch, program)
     print(f"set-up: {t_load - t_start:.2f} s to load, "
-          f"{t_built - t_load:.2f} s to build the MPC, warm-up ticks "
-          + ", ".join(f"{x:.2f}" for x in warm_s) + " s", file=sys.stderr)
+          f"{p.t_built - t_load:.2f} s to build the MPC, warm-up ticks "
+          + ", ".join(f"{x:.2f}" for x in p.warm_s) + " s", file=sys.stderr)
     ck = cell.settings["check"]
-    keep = check.pick_ticks(inputs.rng, ck["horizon"], ck["ticks"])
+    keep = check.pick_ticks(p.inputs.rng, ck["horizon"], ck["ticks"])
     trace_ticks = cell.settings["trace_ticks"] if trace else 0
+    reads = window_reads(cell.per_layer) if trace else {}
+    snapshot = ((cell.settings["quality_ticks"],
+                 lambda: {n: read() for n, read in reads.items()})
+                if reads else None)
     if cuda:
         torch.cuda.synchronize(dev)
     with spans.installed() if trace else contextlib.nullcontext():
         prof = spans.profiler() if trace else None
-        w = window(step, carry, inputs, dt, warm, seconds, keep, prof,
-                   trace_ticks)
+        w = window(p.step, p.carry, p.inputs, p.dt, p.k0, seconds, keep,
+                   late=ck["late"], prof=prof, prof_ticks=trace_ticks,
+                   ticks=ticks, snapshot=snapshot)
     setup_s = w["w0"] - t_start
     mem = int(torch.cuda.max_memory_allocated(dev)) if cuda else 0
     summary = spans.summarize_profile(prof, trace_ticks) if trace else None
@@ -150,20 +189,25 @@ def run_cell(name, seed, seconds, trace, t_start, device="cuda", batch=None,
               f"{summary['op_us']:.0f} us, of which "
               f"{summary['device_us']['tick']:.0f} us found under the tick "
               f"spans", file=sys.stderr)
-    del prof, mpc, step, carry
+    inputs = p.inputs
+    del prof, p
     records = w.pop("records")
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ref = build.build_mpc(build.reference(), cell.config, dev)
-    values = check.compare(records, ref, inputs.base_vel)
-    print(f"check: {len(records)} of {len(w['tick_s'])} ticks against the "
+    each = check.compare_each(records, ref, inputs.base_vel)
+    del records
+    print(f"check: {len(each)} of {len(w['tick_s'])} ticks against the "
           f"reference in {time.perf_counter() - t0:.2f} s", file=sys.stderr)
-    correct, shown = check.verdict(values, ck["limits"])
+    for k, g in each.items():
+        print(f"check tick {k}: " + ", ".join(f"{n} {v!r}" for n, v in
+                                               g.items()), file=sys.stderr)
+    correct, shown = check.verdict(check.worst(each), ck["limits"])
 
     run = Run(setup_s, w["window_s"], w["tick_s"], w["tick_violation"],
-              w["scenario_ticks"], cell.settings, summary)
+              w["scenario_ticks"], cell.settings, summary, w["snapshot"])
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
         value = reader(m["name"])(run)
@@ -181,6 +225,7 @@ def run_cell(name, seed, seconds, trace, t_start, device="cuda", batch=None,
             "device_ops": [[n[:120], us * 1e-6] for n, us in
                            summary["top_ops"]],
             "idle_gaps": [[n, us * 1e-6] for n, us in summary["idle_gaps"]]}
+    result["check_ticks"] = {str(k): g for k, g in each.items()}
     result["check"] = shown
     return result
 

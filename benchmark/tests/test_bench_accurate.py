@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from benchmark import build, harness, roofline, spans
-from benchmark.cell import ROOT, Cell, load_json, reader
+from benchmark.cell import ROOT, Cell, load_json, metric_module, reader
 
 ACCURATE = "benchmark/configs/b2g_rnea_accurate.json"
 #: the hot cells' per-layer metrics, which read the accurate tick as well
@@ -49,10 +49,14 @@ def test_the_configuration_is_the_accurate_preset():
     assert {k: cfg[k] for k in same} == {k: hot[k] for k in same}
 
 
-def _run(trace):
+TOL = "sqp.eq_projection.within_tol_pct.accurate"
+
+
+def _run(trace, tallies=None):
     return harness.Run(setup_s=20.0, window_s=50.0, tick_s=[0.5],
                        tick_violation=[2e-4], scenario_ticks=512,
-                       settings={"quality_ticks": 60}, trace=trace)
+                       settings={"quality_ticks": 60}, trace=trace,
+                       snapshots=None if tallies is None else {TOL: tallies})
 
 
 def _summary():
@@ -92,19 +96,33 @@ def test_the_span_readers_on_a_synthetic_summary():
 
 
 def test_the_tally_reader():
+    """The share over the tallies that the run carries (the program's,
+    read at ``quality_ticks``), not over what the process holds when the
+    reader runs."""
     from tpu_locoman_torch import trace
 
     read = reader("sqp.eq_projection.within_tol_pct.accurate")
     trace.reset_tallies()
-    assert read(_run(_summary())) is None  # the closer never ran
+    assert read(_run(_summary(), trace.tallies())) is None  # no closer ran
     trace.tally("sqp.eq_projection.kept_pass", torch.tensor([0, 0, 0, 12,
                                                              500]))
     trace.tally("sqp.eq_projection.within_tol", torch.tensor(500))
     trace.tally("sqp.eq_projection.kept_pass", torch.tensor([0, 0, 0, 100,
                                                              412]))
     trace.tally("sqp.eq_projection.within_tol", torch.tensor(512))
-    assert read(_run(_summary())) == pytest.approx(100 * 1012 / 1024)
-    assert read(_run(None)) is None
+    snap = trace.tallies()
+    assert read(_run(_summary(), snap)) == pytest.approx(100 * 1012 / 1024)
+    trace.tally("sqp.eq_projection.kept_pass", torch.tensor([0, 0, 0, 0,
+                                                             512]))
+    trace.tally("sqp.eq_projection.within_tol", torch.tensor(0))
+    assert read(_run(_summary(), snap)) == pytest.approx(100 * 1012 / 1024)
+    assert read(_run(_summary())) is None  # no read was taken
+    assert read(_run(None, snap)) is None
+    # the read that the harness takes: on tallies reset before the window
+    take = metric_module(TOL).window_read()
+    assert take() == {}
+    trace.tally("sqp.eq_projection.within_tol", torch.tensor(7))
+    assert int(take()["sqp.eq_projection.within_tol"]) == 7
     trace.reset_tallies()
 
 

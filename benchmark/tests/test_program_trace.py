@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from benchmark import build, program_trace, spans
-from benchmark.cell import ROOT, load_json
+from benchmark.cell import ROOT, Cell, load_json
 
 trace = pytest.importorskip("tpu_locoman_torch.trace")
 
@@ -146,3 +146,20 @@ def test_trace_program_runs_on_the_cpu(tmp_path):
     r = json.loads(out.stdout.strip().splitlines()[-1])
     assert r["pairs"] == 2 and len(r["block_medians_on_off"]) == 2
     assert set(r["tick_s_quartiles"]) == {"on", "off"}
+
+
+def test_trace_program_traced_mode_runs_on_the_cpu():
+    """The default mode at batch 1: the cell's traced ticks through
+    ``harness.window`` under the profiler, both reductions read."""
+    out = subprocess.run(
+        [sys.executable, "benchmark/trace_program.py", "--workload",
+         "hot_b512", "--seed", str(2 ** 31 + 11), "--device", "cpu",
+         "--batch", "1"],
+        capture_output=True, text=True, cwd=ROOT, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    r = json.loads(out.stdout.strip().splitlines()[-1])
+    assert r["ticks"] == Cell("hot_b512").settings["trace_ticks"]
+    assert set(r["same_layer_device_ms"]) == {"sqp.solve", "ocp.linearize",
+                                              "qp.admm_solve"}
+    assert r["spans_per_tick"] > 0
+    assert "host.syncs_per_tick.hot" in r["metrics"]

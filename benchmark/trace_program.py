@@ -94,8 +94,8 @@ def traced(args, trace):
     ticks = c.settings["trace_ticks"]
     with spans.installed():
         prof = _profiler(cuda)
-        w = harness.window(step, carry, inputs, dt, warm, 0.0, set(), prof,
-                           ticks)
+        w = harness.window(step, carry, inputs, dt, warm, 0.0, set(),
+                           prof=prof, prof_ticks=ticks)
     trace.disable()
     recorded = trace.spans()
     summary = spans.summarize_profile(prof, ticks)
